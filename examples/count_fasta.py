@@ -5,7 +5,7 @@
 Equivalent reference workflow: iterating CanonicalKmers and updating a
 dict (/root/reference/docs/src/composition.md) — here the whole pipeline
 (parse -> classify -> pack -> window -> canonicalize -> count) runs as
-batched TPU kernels with the table device-resident until the final fetch.
+batched device programs with the table device-resident until the final fetch.
 """
 
 import argparse

@@ -1,14 +1,14 @@
-"""kmers_tpu: a TPU-native k-mer engine (JAX/XLA/Pallas).
+"""kmers_tpu: a k-mer engine for the GPU (JAX/XLA).
 
 A from-scratch framework with the capabilities of BioJulia/Kmers.jl
 (reference mounted at /root/reference; see SURVEY.md for the blueprint),
-re-designed TPU-first:
+re-designed for accelerators:
 
 - ``kmers_tpu`` (top level): the scalar API plane — symbols, alphabets,
   the :class:`Kmer` value type, construction utilities, iterators,
   translation and reverse-translation.  Bit-exact with the reference's
   semantics contracts; serves as the oracle for the array plane.
-- ``kmers_tpu.ops``: the TPU compute plane — batched encode/pack kernels,
+- ``kmers_tpu.ops``: the array compute plane — batched encode/pack ops,
   windowed k-mer extraction over packed uint32 words, canonicalization,
   FxHash, sort-based counting, minimizers, batched translation.
 - ``kmers_tpu.parallel``: SPMD scaling — device meshes, halo-sharded

@@ -240,14 +240,12 @@ def cmd_bench(args):
     data = jax.device_put(
         np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, L)]
     )
-    use_pallas = jax.default_backend() == "tpu"
-    out = _chunk_count(data, K, use_pallas)
-    int(np.asarray(out[3]))
+    jax.block_until_ready(_chunk_count(data, K))
     t0 = time.perf_counter()
     for _ in range(3):
-        out = _chunk_count(data, K, use_pallas)
-        int(np.asarray(out[3]))
+        jax.block_until_ready(_chunk_count(data, K))
     dt = (time.perf_counter() - t0) / 3
+    dev = jax.devices()[0]
     print(
         json.dumps(
             {
@@ -255,12 +253,16 @@ def cmd_bench(args):
                 "value": round(L / dt),
                 "unit": "bases/sec",
                 "vs_baseline": round(L / dt / 5.0e7, 3),
+                "device": {"platform": dev.platform, "kind": dev.device_kind},
             }
         )
     )
 
 
 def main(argv=None):
+    from .utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     p = argparse.ArgumentParser(prog="kmers_tpu")
     sub = p.add_subparsers(dest="command", required=True)
 

@@ -1,6 +1,6 @@
 """Alphabets: encoding/decoding between symbols and fixed-width bit codes.
 
-TPU-native replacement for the BioSequences.jl alphabet subsystem that the
+Array-plane-ready replacement for the BioSequences.jl alphabet subsystem that the
 reference leans on (SURVEY.md §2.6; /root/reference/src/Kmers.jl:112-116).
 
 Contractual encodings (bit-exact parity with the reference):
@@ -12,7 +12,7 @@ Contractual encodings (bit-exact parity with the reference):
 - ``AminoAcidAlphabet`` (8 bits/symbol): BioSymbols codes 0x00..0x1b.
 
 Each alphabet also provides 256-entry ASCII lookup tables used by the batched
-TPU encode kernels (`kmers_tpu.ops.encode`); invalid bytes map to 0xff,
+batched encode ops (`kmers_tpu.ops.encode`); invalid bytes map to 0xff,
 matching the reference's ``encoding > 0x7f`` error check
 (/root/reference/src/construction_utils.jl:79-87).
 """

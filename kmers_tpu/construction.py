@@ -6,7 +6,7 @@ utilities (/root/reference/src/construction_utils.jl) that let users build
 custom kmer-like extractors (minimizers, syncmers, strobemers).
 
 In this framework, scheme selection happens once per (target alphabet,
-source type) pair in plain Python; the batched TPU encode kernels in
+source type) pair in plain Python; the batched encode ops in
 ``kmers_tpu.ops.encode`` are the vectorized counterparts of these scalar
 paths and are tested against them.
 """

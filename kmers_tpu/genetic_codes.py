@@ -1,6 +1,6 @@
 """Genetic codes: codon -> amino-acid translation tables.
 
-TPU-native replacement for ``BioSequences.GeneticCode`` (SURVEY.md §2.6).
+Array-plane-ready replacement for ``BioSequences.GeneticCode`` (SURVEY.md §2.6).
 A codon is encoded as a 6-bit integer ``(a << 4) | (b << 2) | c`` where
 ``a, b, c`` are the 2-bit codes (A=0, C=1, G=2, U=3) of the codon bases —
 identical to the data word of an ``RNACodon`` in the reference

@@ -2,7 +2,7 @@
 
 The reference delegates file IO to FASTX.jl and feeds kmer iterators with
 ``StringView``s (/root/reference/ext/StringViewsExt.jl,
-docs/src/minhash.md); this framework owns ingestion because the TPU
+docs/src/minhash.md); this framework owns ingestion because the array
 encode kernels want large contiguous byte buffers, not line-by-line
 records.  Records come back CSR-style: one concatenated sequence byte
 buffer plus record-start offsets — windows must not span records, which

@@ -1,6 +1,6 @@
 // Native FASTA/FASTQ scanner: the host-side data-loader hot path.
 //
-// The framework streams gigabases from disk into the TPU encode kernels;
+// The framework streams gigabases from disk into the batched encode ops;
 // Python-level line parsing would bottleneck the pipeline well below one
 // chip's ingest rate, so record scanning and newline stripping run here.
 //

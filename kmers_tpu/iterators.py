@@ -1,4 +1,4 @@
-"""Scalar k-mer iterators: the semantic contract for the TPU window kernels.
+"""Scalar k-mer iterators: the semantic contract for the batched window ops.
 
 Mirrors /root/reference/src/iterators/ (FwKmers, FwRvIterator,
 CanonicalKmers, UnambiguousKmers, SpacedKmers).  Each iterator rolls a
@@ -10,7 +10,7 @@ Differences from the reference (documented API decisions):
 - positions are 0-based (the reference is 1-based Julia);
 - iterators take ``(alphabet, K, source)`` instead of type parameters —
   K and the alphabet are still compile-time constants when these configs
-  reach the jitted TPU path (SURVEY.md §5 "Config / flag system").
+  reach the jitted array path (SURVEY.md §5 "Config / flag system").
 """
 
 from __future__ import annotations

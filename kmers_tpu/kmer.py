@@ -1,8 +1,8 @@
 """Kmer: an immutable, register-packed k-mer value type.
 
 Scalar (one-kmer-at-a-time) layer of the framework: the API surface, the
-semantics contract, and the test oracle for the batched TPU ops in
-``kmers_tpu.ops``.  The hot loops live in the TPU plane; this class
+semantics contract, and the test oracle for the batched array ops in
+``kmers_tpu.ops``.  The hot loops live in the array plane; this class
 prioritizes bit-exact semantics over speed.
 
 Bit-layout contract (identical to the reference, /root/reference/src/kmer.jl:33-44):

@@ -1,4 +1,4 @@
-"""TPU compute plane: batched, jit-compiled kernels over packed words.
+"""Array compute plane: batched, jit-compiled ops over packed words.
 
 Layer map (mirrors SURVEY.md §7 build order):
 
@@ -21,7 +21,6 @@ from .windows import (
     rc_windows_4bit_from_codes,
     canonical_windows_4bit_from_codes,
     window_valid_mask,
-    window_valid_mask_om,
 )
 from .hashing import fx_hash_u64, fx_hash_words
 from .count import (

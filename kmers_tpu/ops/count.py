@@ -5,9 +5,7 @@ The in-framework replacement for the reference's user-side dict counting
 and no dynamic allocation, so counting is a deterministic sort +
 run-length encode.
 
-TPU-shaped design: scatters are serialized on TPU and random gathers
-(e.g. searchsorted) cost seconds at 10^8 elements, so the run-length
-encoding uses neither.  Counting is:
+Counting uses neither scatters nor random gathers:
 
 1. lexicographic two-key sort of (hi, lo);
 2. run boundaries by neighbor comparison; per-element run totals by
@@ -16,8 +14,8 @@ encoding uses neither.  Counting is:
 3. in-place emission: each run's last element keeps (kmer, total), all
    other positions become sentinel/zero padding.  No compaction pass —
    front-packing the representatives would need a second full stable
-   sort, which measured ~40% of the whole pipeline on TPU, and nothing
-   downstream needs density (merges re-sort; hosts mask ``counts > 0``).
+   sort, and nothing downstream needs density (merges re-sort; hosts
+   mask ``counts > 0``).
 
 Results are sorted (among real rows) and bit-exact reproducible — the
 property the multi-device hash-prefix merge (kmers_tpu.parallel) relies on.
@@ -59,9 +57,9 @@ def _run_length_encode(shi, slo, weights=None):
     The table is *sentinel-interspersed*, not front-packed: each run's
     last element keeps the kmer and carries the run's total; every other
     position is sentinel/zero padding.  Real rows remain in sorted order.
-    Front-packing would cost a second full stable sort (measured ~40% of
-    the counting pipeline on TPU) and no consumer needs it — downstream
-    merges re-sort, and host extraction masks with ``counts > 0``.
+    Front-packing would cost a second full stable sort and no consumer
+    needs it — downstream merges re-sort, and host extraction masks with
+    ``counts > 0``.
     """
     n = shi.shape[0]
     sent = jnp.asarray(SENTINEL, _U32)
@@ -92,23 +90,15 @@ def _run_length_encode(shi, slo, weights=None):
     return uniq_hi, uniq_lo, counts, n_unique
 
 
-@partial(jax.jit, static_argnames=("use_pallas", "interpret", "key_bits"))
-def sort_count(
-    hi,
-    lo,
-    valid=None,
-    use_pallas: bool = False,
-    interpret: bool = False,
-    key_bits: int | None = None,
-):
+@partial(jax.jit, static_argnames=("key_bits",))
+def sort_count(hi, lo, valid=None, key_bits: int | None = None):
     """Count distinct kmers in a U64 stream.
 
     Returns ``(uniq_hi, uniq_lo, counts, n_unique)``: a sentinel-
     interspersed table holding each of the ``n_unique`` sorted distinct
     kmers exactly once with its multiplicity; all other slots are
     sentinel/zero padding (static shapes — callers mask with
-    ``counts > 0``).  ``use_pallas`` selects the fused single-pass RLE
-    kernel (TPU backends; ``interpret`` for CPU tests).
+    ``counts > 0``).
 
     ``key_bits`` (static): register width ``K * bits_per_symbol`` of the
     caller's kmers.  Callers that know it should pass it so the sentinel
@@ -131,32 +121,19 @@ def sort_count(
         lo = jnp.where(valid, lo, sent)
     # unstable: (hi, lo) fully determines the comparator, so equal elements
     # are bit-identical and the RLE is order-agnostic within a run
-    # (measured on v5e @ 2^26: stable 297 ms, unstable 209 ms)
     shi, slo = lax.sort((hi, lo), num_keys=2, is_stable=False)
-    if use_pallas:
-        from .pallas.rle_kernel import rle_unit_pallas
-
-        return rle_unit_pallas(shi, slo, interpret=interpret)
     return _run_length_encode(shi, slo)
 
 
-@partial(jax.jit, static_argnames=("use_pallas",))
-def compact_counts(uh, ul, cnt, use_pallas: bool | None = None):
+@jax.jit
+def compact_counts(uh, ul, cnt):
     """Front-pack the real rows of a sentinel-interspersed count table.
 
-    Gather/scatter-free (both are serialized on TPU): every real row must
-    move left by ``d_i`` = number of sentinel rows before it — ``d`` is
-    nondecreasing, so the permutation decomposes into log2(n) conditional
-    shift-left-by-2^k passes (move exactly the rows whose ``d`` has bit k
-    set), each pure slicing + selects.  ~log2(n) fused HBM passes
-    (~70 ms at 2^26 on v5e) vs a full 3-operand sort (~370 ms measured).
-
-    ``use_pallas`` (default OFF): fusing the first 15 passes into one
-    Mosaic round trip (ops/pallas/merge_kernel.compact_tail_pallas) was
-    measured SLOWER than the jnp passes on v5e — Mosaic lane/sublane
-    rolls cost far more per pass than XLA's fused shifts (same finding
-    as the sort showdown, SORT_EXPERIMENTS_r04.json) — so the kernel is
-    kept as a measured experiment, not the default.
+    Gather/scatter-free: every real row must move left by ``d_i`` =
+    number of sentinel rows before it — ``d`` is nondecreasing, so the
+    permutation decomposes into log2(n) conditional shift-left-by-2^k
+    passes (move exactly the rows whose ``d`` has bit k set), each pure
+    slicing + selects.
 
     Relative order of real rows is preserved (the table stays sorted);
     the tail becomes sentinel/zero.  Same static shape in and out.
@@ -169,18 +146,6 @@ def compact_counts(uh, ul, cnt, use_pallas: bool | None = None):
     v = real
     xs = (uh, ul, cnt.astype(_I32))
     k = 0
-    if use_pallas is None:
-        use_pallas = False  # measured slower on TPU; see docstring
-    _W = 4096
-    if use_pallas and n % (8 * _W) == 0:
-        from .pallas.merge_kernel import compact_tail_pallas
-
-        oh, ol, oc, d, vi = compact_tail_pallas(
-            uh, ul, cnt.astype(_I32), d, v.astype(_I32)
-        )
-        xs = (oh, ol, oc)
-        v = vi != 0
-        k = (8 * _W).bit_length() - 1  # passes 0..14 done in-kernel
     while (1 << k) < n:
         s = 1 << k
 
@@ -210,12 +175,8 @@ def _next_pow2(n: int) -> int:
     return 1 << max(int(n - 1).bit_length(), 0)
 
 
-@partial(jax.jit, static_argnames=("use_pallas", "tail_interpret"))
-def merge_compact_tables(
-    hi_a, lo_a, cnt_a, hi_b, lo_b, cnt_b,
-    use_pallas: bool | None = None,
-    tail_interpret: bool = False,
-):
+@jax.jit
+def merge_compact_tables(hi_a, lo_a, cnt_a, hi_b, lo_b, cnt_b):
     """Merge two *sorted* count tables with a bitonic merge network.
 
     Unlike :func:`merge_sorted_counts` (concat + full re-sort,
@@ -226,26 +187,15 @@ def merge_compact_tables(
     ``2 * next_pow2(max(len(a), len(b)))``; equal keys are summed by the
     weighted RLE and the table is front-packed by :func:`compact_counts`.
 
-    ``use_pallas`` (default OFF): fusing the in-tile compare-exchange
-    steps into one Mosaic pass (ops/pallas/merge_kernel.py) was measured
-    at 1881 us/stage on v5e vs ~103 us/stage for XLA's own fused passes
-    (SORT_EXPERIMENTS_r04.json) — the kernel is kept as a measured
-    experiment, not the default.
-
     Returns ``(uniq_hi, uniq_lo, counts, n_unique)``, compact and sorted.
     This is the streaming-accumulator merge: with capacity-sliced inputs
     its cost tracks the true distinct count, not the stream length.
     """
     half = _next_pow2(max(hi_a.shape[0], hi_b.shape[0], 1))
-    if half >= (1 << 22) and not use_pallas:
-        # (an explicit use_pallas=True keeps the bitonic+Mosaic
-        # experiment path measurable at any size)
-        # big tables: XLA's sort HLO fuses its comparator stages
-        # (~0.2 ms/stage at 2^25) while this jnp stage loop materializes
-        # every stage to HBM (~12 ms/stage) — measured 164.5 ms
-        # (sort+RLE) + ~100 ms compaction vs 328 ms bitonic at
-        # 2^24-row pairs (ROUND6F_r04.jsonl).  Below ~2^22 both are
-        # dispatch-latency-bound and the bitonic form wins slightly.
+    if half >= (1 << 22):
+        # big tables: XLA's sort HLO fuses its comparator stages while
+        # this jnp stage loop materializes every stage to device memory
+        # (the 2^22-row crossover is not yet tuned on the H100)
         uh, ul, cnt, nu = merge_sorted_counts(
             hi_a, lo_a, cnt_a, hi_b, lo_b, cnt_b
         )
@@ -266,21 +216,10 @@ def merge_compact_tables(
     xh = jnp.concatenate([ah, bh[::-1]])
     xl = jnp.concatenate([al, bl[::-1]])
     xc = jnp.concatenate([ac, bc[::-1]])
-    if use_pallas is None:
-        use_pallas = False  # measured slower on TPU; see docstring
-    W = 4096
-    fuse = use_pallas and (2 * half) % (8 * W) == 0
     m = half.bit_length()  # log2(2 * half)
     n2 = 2 * half
     for k in range(m, 0, -1):
         d = 1 << (k - 1)
-        if fuse and d <= 4 * W:
-            from .pallas.merge_kernel import bitonic_merge_tail_pallas
-
-            xh, xl, xc = bitonic_merge_tail_pallas(
-                xh, xl, xc, W=W, interpret=tail_interpret
-            )
-            break
         if d >= 128:
             # reshape form: minor dim d >= one lane tile, layout stays
             # dense

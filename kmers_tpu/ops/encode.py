@@ -2,14 +2,14 @@
 
 The array-plane counterpart of the reference's per-symbol recoding loops
 (/root/reference/src/construction_utils.jl:27-104): instead of one symbol
-per iteration, whole byte buffers are classified and encoded with VPU
+per iteration, whole byte buffers are classified and encoded with elementwise
 arithmetic, then packed 16 bases (2-bit) / 8 (4-bit) / 4 (8-bit) per
 uint32 word with the first symbol in the word's top bits — the same
 big-endian layout the scalar :class:`~kmers_tpu.kmer.Kmer` register uses,
 so windows sliced out of the packed stream are directly comparable.
 
 Classification of 2-bit DNA/RNA input is branch-free arithmetic (no
-gathers, which are slow on TPU): the 2-bit code comes from the classic
+gathers): the 2-bit code comes from the classic
 ``((b >> 1) ^ (b >> 2)) & 3`` identity on ASCII A/C/G/T/U (case-insensitive),
 and the valid/ambiguous classes from a 26-bit letter bitmask test, exactly
 reproducing ASCII_SKIPPING_LUT semantics
@@ -94,10 +94,9 @@ _TABLES = {
 def lookup_bytes(tbl_np, idx):
     """Gather-free byte-table lookup: ``tbl_np[idx]`` without a gather.
 
-    TPUs serialize random gathers — a 64-entry codon-table ``jnp.take``
-    over 5.6M codons measured 42 ms on v5e; this select-tree form costs
-    ~log2(len)/4 elementwise selects per element (sub-ms at the same
-    size).  ``tbl_np`` must be a HOST numpy uint8 array (it becomes
+    This select-tree form costs ~log2(len)/4 elementwise selects per
+    element and no gather (whether it still beats ``jnp.take`` on the
+    H100 is not yet measured).  ``tbl_np`` must be a HOST numpy uint8 array (it becomes
     compile-time constants); ``idx`` is a traced integer array of
     in-range indices.  The table is packed 4 bytes/u32 and resolved by a
     binary select tree on the word index plus a variable byte shift.
@@ -130,9 +129,7 @@ def encode_table(bytes_u8, alphabet_cls):
 
     Semantically identical to indexing the alphabet's 256-entry ASCII
     table (invalid bytes encode as 0xFF), but computed with letter
-    bitmask arithmetic: TPUs serialize random gathers — the table-gather
-    form measured 625 ms per 2^26 bytes on v5e vs ~3 ms for this form.
-    Per code bit k, a 26-bit mask of letters whose encoding has bit k
+    bitmask arithmetic instead of a table gather.  Per code bit k, a 26-bit mask of letters whose encoding has bit k
     set is tested at the byte's letter index (case-folded); non-letter
     entries (e.g. ``-`` ``*``) are handled by direct compares.
     """
@@ -202,10 +199,7 @@ def pack_words(codes_u32, bps: int = 2, pad_words: int = 2):
     padded = jnp.zeros(W * P, _U32).at[:L].set(codes_u32.astype(_U32))
     groups = padded.reshape(W, P)
     shifts = jnp.asarray([bps * (P - 1 - j) for j in range(P)], _U32)
-    # bit-disjoint contributions, so a sum is an OR.  (A weighted
-    # reduce_window(P, stride P) variant avoiding the (W, P) reshape was
-    # measured SLOWER on v5e — +26 ms on the 4-bit config at 2^26 — so
-    # the reshape + row sum stays.)
+    # bit-disjoint contributions, so a sum is an OR
     words = jnp.sum(groups << shifts[None, :], axis=1, dtype=_U32)
     if pad_words:
         words = jnp.concatenate([words, jnp.zeros(pad_words, _U32)])

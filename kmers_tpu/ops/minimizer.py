@@ -4,7 +4,7 @@ The reference has no built-in minimizer type — its docs show users how to
 build one from ``unsafe_extract``/``unsafe_shift_from``
 (/root/reference/docs/src/replacements.md:15-24, test/benchmark.jl:96-110);
 minimizer-window selection is also BASELINE.json config 3.  This module is
-the batched TPU-native version: for every window of ``W`` consecutive
+the batched array-plane version: for every window of ``W`` consecutive
 kmers, select the kmer with the smallest FxHash (leftmost on ties).
 
 Sequentially this is a deque-based sliding minimum; the data-parallel
@@ -33,11 +33,9 @@ def _sliding_min_with(key_hi, key_lo, extras, W: int):
     """Doubling sliding-min over (key_hi, key_lo, pos) with ``extras``
     (a tuple of same-length arrays) carried along with the winner.
 
-    Carrying payloads through the O(log W) elementwise-select rounds is
-    the TPU-shaped way to recover the minimizing *kmer values*: the
-    alternative — a ``kmer[argmin]`` gather at the end — is a random
-    gather, which TPUs serialize (measured ~3 s per 2^26 windows vs
-    ~10 ms of extra selects here).
+    Carrying payloads through the O(log W) elementwise-select rounds
+    recovers the minimizing *kmer values* without a ``kmer[argmin]``
+    random gather at the end.
 
     Returns ``(min_hi, min_lo, argmin_pos, *min_extras)``.
     """

@@ -4,8 +4,7 @@
 specialized 2-bit GC popcount (/root/reference/src/counting.jl:1-8):
 per 64-bit register, ``popcount((w ^ (w >> 1)) & 0x5555...)`` — C=01 and
 G=10 differ in their two bits, A=00 and T=11 do not.  Popcount is built
-from the classic SWAR ladder in uint32 lanes (no popcount primitive on
-the VPU).
+from the classic SWAR ladder in uint32 lanes (no popcount primitive needed).
 """
 
 from __future__ import annotations

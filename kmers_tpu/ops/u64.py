@@ -1,11 +1,10 @@
 """Vectorized 64-bit unsigned arithmetic as (hi, lo) uint32 pairs.
 
-TPUs have no native 64-bit integer lanes; XLA emulates u64, and Pallas
-kernels cannot use it at all.  This module is the framework's "NTuple of
+JAX keeps 64-bit integers off by default, so this module is the framework's "NTuple of
 UInt64 register" analogue (SURVEY.md §7 design stance): a batched 64-bit
 word is a pair of uint32 arrays, and every kmer-register operation
-(shift-carry, compare, FxHash multiply) is expressed in uint32 VPU ops.
-Works identically under jnp on CPU/TPU and inside Pallas kernel bodies.
+(shift-carry, compare, FxHash multiply) is expressed in uint32 ops.
+Works identically on every backend.
 
 A U64 is simply a ``(hi, lo)`` tuple of same-shape uint32 arrays.
 """
@@ -86,7 +85,7 @@ def rotl(a, k: int):
 
 
 def _mul32_full(a, b):
-    """32x32 -> 64 multiply via 16-bit limbs (no native mulhi on TPU lanes)."""
+    """32x32 -> 64 multiply via 16-bit limbs (no 64-bit type needed)."""
     al = a & 0xFFFF
     ah = a >> 16
     bl = b & 0xFFFF

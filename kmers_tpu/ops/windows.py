@@ -1,4 +1,4 @@
-"""Windowed k-mer extraction over packed words — the TPU hot path.
+"""Windowed k-mer extraction over packed words — the counting hot path.
 
 The data-parallel reformulation of the reference's rolling iterators
 (SURVEY.md §3.2/§3.3): instead of shifting one encoding into a register
@@ -7,7 +7,7 @@ all L-K+1 windows are produced at once from the packed word stream by
 combining each word with its two successors at the ``32//bps`` static
 sub-word offsets — the cross-word carry of ``leftshift_carry``
 (/root/reference/src/tuple_bitflipping.jl:24-46) becomes a static shift/OR
-of adjacent words.  ~10 VPU ops per base, no gathers, no sequential state.
+of adjacent words.  ~10 elementwise ops per base, no gathers, no sequential state.
 
 Reverse-complement windows use the two-stream trick (the batched analogue
 of FwRvIterator maintaining both kmers,
@@ -134,31 +134,6 @@ def canonical_windows_from_codes(codes, K: int):
     fw = windows_from_codes(codes, K, bps=2)
     rv = rc_windows_from_codes(codes, K)
     return u64.minimum(fw, rv)
-
-
-@partial(jax.jit, static_argnames=("K", "Qp"))
-def window_valid_mask_om(good, K: int, Qp: int):
-    """Offset-major variant of :func:`window_valid_mask` for the Pallas
-    kernel's (16, Qp) layout: entry [r, q] is the validity of window
-    16*q + r.  Built from 16 strided slices of the cumulative bad count —
-    no transpose/relayout of the full mask.  Positions beyond the real
-    window count are invalid (the padding of the cumulative sum is
-    strictly increasing, so any out-of-range window sees a positive
-    difference)."""
-    L = good.shape[0]
-    bad = (~good).astype(jnp.int32)
-    cum = jnp.concatenate([jnp.zeros(1, jnp.int32), jnp.cumsum(bad)])
-    total = 16 * Qp
-    pad = total + K - L  # cum has length L+1; need indices up to total+K-1
-    if pad > 0:
-        cum = jnp.concatenate(
-            [cum, cum[-1] + jnp.arange(1, pad + 1, dtype=jnp.int32)]
-        )
-    rows = [
-        cum[r + K : r + K + 16 * Qp : 16] - cum[r : r + 16 * Qp : 16]
-        for r in range(16)
-    ]
-    return jnp.stack(rows) == 0
 
 
 @partial(jax.jit, static_argnames=("K",))

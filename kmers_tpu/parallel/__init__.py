@@ -3,7 +3,7 @@
 The reference is single-threaded library code (SURVEY.md §2.7); this
 plane is the framework's new design obligation: data-parallel k-mer
 pipelines over a ``jax.sharding.Mesh`` with (K-1)-base halos and
-hash-prefix ``all_to_all`` count-table exchange over ICI.
+hash-prefix ``all_to_all`` count-table exchange.
 """
 
 from .mesh import data_mesh

@@ -12,8 +12,8 @@ def data_mesh(n_devices: int | None = None, axis: str = "data") -> Mesh:
     """A 1-D mesh over the first ``n_devices`` devices.
 
     K-mer workloads are embarrassingly data-parallel over sequence shards
-    (SURVEY.md §2.7 item 1); a single "data" axis rides ICI within a slice
-    and DCN across hosts.
+    (SURVEY.md §2.7 item 1), so one "data" axis is all the algorithm
+    needs; every card of the machine reaches every other at the same rate.
     """
     devices = jax.devices()
     if n_devices is None:

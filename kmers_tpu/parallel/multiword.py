@@ -106,7 +106,7 @@ def exchange_and_merge_mw(ulimbs, cnt, n_dev: int, cap: int, axis: str):
     overflow = jnp.sum(jnp.maximum(seg_real - cap, 0))
 
     # per-destination contiguous dynamic slices instead of one gather
-    # (random gathers are serialized on TPU; see pipeline.exchange_and_merge)
+    # (see pipeline.exchange_and_merge)
     in_seg = jnp.arange(cap, dtype=_I32)[None, :] < seg_counts[:, None]
     starts = jnp.clip(seg_starts, 0, n_rows).astype(_I32)
     pad_limbs = tuple(
@@ -183,7 +183,7 @@ import functools
 @functools.lru_cache(maxsize=64)
 def sharded_count_step_mw(mesh: Mesh, K: int, shard_len: int, cap: int):
     # cached per geometry: rebuilding the shard_map closure per call
-    # would recompile every time (~60 s through a remote transport)
+    # would recompile every time
     axis = mesh.axis_names[0]
     n_dev = mesh.devices.size
     M = n_limbs(K)

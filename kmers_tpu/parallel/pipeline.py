@@ -8,16 +8,14 @@ The multi-device flagship pipeline (SURVEY.md §7 M6, BASELINE.json config 5):
    (/root/reference/src/tuple_bitflipping.jl:24-46) lifted to the
    device-shard granularity.
 2. **Local streaming count**: each device streams its slab in chunks
-   through the same fused front-end + sort + RLE kernels as the
-   single-chip flagship (``use_pallas``: the Mosaic u32 kernel), folding
-   chunk tables with the mergesort-style level-stack accumulator of
+   through the same front-end + sort + RLE as the single-chip flagship,
+   folding chunk tables with the mergesort-style level-stack accumulator of
    ``pipelines.canonical_count`` — per-device compact tables whose
    capacity tracks the distinct count, so gigabase slabs never need a
    whole-slab dispatch.
 3. **Hash-prefix exchange** (once, on the final local tables): each
    table row is routed to the device owning its FxHash prefix via
-   ``all_to_all`` (ICI), so every distinct kmer lands on exactly one
-   device.
+   ``all_to_all``, so every distinct kmer lands on exactly one device.
 4. **Local merge**: per-device weighted RLE yields a hash-partitioned,
    globally deduplicated count table.
 
@@ -68,13 +66,9 @@ class ShardedCountConfig:
     bucket_factor: float = 2.0
     #: bases per device per jitted dispatch; slabs longer than this are
     #: streamed through the level-stack accumulator.  2^20 for the same
-    #: sort-stage economics as CountConfig.chunk_size (461.1 vs 449.0
-    #: Mb/s at 2^21 in interleaved same-session medians, ROUND7E_r05).
+    #: sort-stage economics as CountConfig.chunk_size (not yet tuned on
+    #: the H100, ROADMAP S4).
     chunk_size: int = 1 << 20
-    #: use the fused Mosaic window kernel per device; None = auto (TPU only).
-    use_pallas: bool | None = None
-    #: run the kernel in interpreter mode (CPU testing of the kernel path).
-    pallas_interpret: bool = False
 
     def __post_init__(self):
         if not 1 <= self.K <= 31:
@@ -87,52 +81,25 @@ class ShardedCountConfig:
 # SPMD bodies
 
 
-def _local_count_body(
-    shard_view,
-    K: int,
-    axis: str,
-    use_pallas: bool,
-    interpret: bool,
-    V: int,
-    checked: bool = False,
-):
+def _local_count_body(shard_bytes, K: int, checked: bool = False):
     """Per-device local chunk count (runs under shard_map).
 
-    ``shard_view``: with ``use_pallas`` a (1, n4) uint32 little-endian
-    view of this device's 'N'-padded chunk bytes (same host-side
-    zero-copy prep as the single-chip flagship); otherwise (1, n_bytes)
-    uint8.  Returns this device's sentinel-interspersed local count
-    table, its distinct count, and its invalid-byte count (halo bytes
-    included — callers only test > 0, so double-counting an invalid halo
-    byte is harmless; padding is 'N', the ambiguity class, never
-    invalid).
+    ``shard_bytes``: (1, n_bytes) uint8, this device's 'N'-padded chunk.
+    Returns this device's sentinel-interspersed local count table, its
+    distinct count, and its invalid-byte count (halo bytes included —
+    callers only test > 0, so double-counting an invalid halo byte is
+    harmless; padding is 'N', the ambiguity class, never invalid).  With
+    ``checked`` also the valid-window and counted tallies for the
+    count-conservation assert.
     """
-    data = shard_view[0]
-    if use_pallas:
-        from ..ops.pallas.window_kernel import canonical_windows_u32_pallas
-
-        hi, lo, n_bad, _n_amb = canonical_windows_u32_pallas(
-            data, K, V=V, interpret=interpret
-        )
-        uh, ul, cnt, nu = sort_count(
-            hi, lo, None, use_pallas=True, interpret=interpret,
-            key_bits=2 * K,
-        )
-        if checked:
-            from ..ops.count import SENTINEL
-
-            sent = jnp.asarray(SENTINEL, jnp.uint32)
-            n_valid = jnp.sum((hi != sent) | (lo != sent), dtype=_I32)
-    else:
-        codes, certain, ambig = classify_2bit(data)
-        n_bad = jnp.sum(~(certain | ambig), dtype=_I32)
-        hi, lo = canonical_windows_from_codes(codes, K)
-        valid = window_valid_mask(certain, K)
-        uh, ul, cnt, nu = sort_count(hi, lo, valid, key_bits=2 * K)
-        if checked:
-            n_valid = jnp.sum(valid, dtype=_I32)
+    codes, certain, ambig = classify_2bit(shard_bytes[0])
+    n_bad = jnp.sum(~(certain | ambig), dtype=_I32)
+    hi, lo = canonical_windows_from_codes(codes, K)
+    valid = window_valid_mask(certain, K)
+    uh, ul, cnt, nu = sort_count(hi, lo, valid, key_bits=2 * K)
     if not checked:
         return uh, ul, cnt, nu[None], n_bad[None]
+    n_valid = jnp.sum(valid, dtype=_I32)
     n_cnt = jnp.sum(cnt, dtype=_I32)
     return (
         uh, ul, cnt, nu[None], n_bad[None],
@@ -140,53 +107,11 @@ def _local_count_body(
     )
 
 
-def _fe_body(shard_view, K: int, interpret: bool, V: int):
-    """Per-device Mosaic front-end only (dispatch 1 of the split local
-    count — see ``pipelines.canonical_count._chunk_count_u32``: giving
-    the sort its own program drops sort.0 from 35.0 to 27.4 ms/2^24 on
-    v5e; an in-jit optimization_barrier does not).
-
-    The window streams are returned 1-D (out_spec ``P(axis)``), NOT as
-    ``(1, n)`` rows: a (1, n) uint32 crossing a dispatch boundary gets
-    the rank-2 (8, 128) tiled layout with 7/8 sublane padding, and the
-    next program pays a full relayout to read it (measured +20 ms/2^24
-    on the sharded sort)."""
-    from ..ops.pallas.window_kernel import canonical_windows_u32_pallas
-
-    hi, lo, n_bad, _n_amb = canonical_windows_u32_pallas(
-        shard_view[0], K, V=V, interpret=interpret
-    )
-    return hi, lo, n_bad[None]
-
-
-def _count_tail_body(hi, lo, K: int, interpret: bool, checked: bool = False):
-    """Per-device sort + fused RLE (dispatch 2 of the split local count).
-
-    ``checked``: also return this device's valid-window and counted
-    tallies for the count-conservation assert (checked mode reaching the
-    SPMD plane — the kernel-level sanitizer of SURVEY.md §5)."""
-    uh, ul, cnt, nu = sort_count(
-        hi, lo, None, use_pallas=True, interpret=interpret,
-        key_bits=2 * K,
-    )
-    if not checked:
-        return uh, ul, cnt, nu[None]
-    from ..ops.count import SENTINEL
-
-    sent = jnp.asarray(SENTINEL, jnp.uint32)
-    n_valid = jnp.sum((hi != sent) | (lo != sent), dtype=_I32)
-    n_cnt = jnp.sum(cnt, dtype=_I32)
-    return uh, ul, cnt, nu[None], n_valid[None], n_cnt[None]
-
-
 def _compact_body(uh, ul, cnt):
     """Front-pack each device's rows (gather-free log-shift compaction).
 
     Tables cross every streamed dispatch boundary as 1-D per-device
-    streams (P(axis)): a (1, n) row gets the rank-2 (8, 128) tiled
-    layout with 7/8 sublane padding and the whole program runs in it —
-    measured 1976 ms vs ~15 ms for this compaction at 2^24 on v5e
-    (ROUND6D_r04.jsonl)."""
+    streams (P(axis))."""
     return compact_counts(uh, ul, cnt)
 
 
@@ -254,9 +179,8 @@ def exchange_and_merge(uh, ul, cnt, n_dev: int, cap: int, axis: str):
     # fixed-capacity buckets: (n_dev, cap), real rows first per segment.
     # Each destination's rows are CONTIGUOUS after the destination sort,
     # so bucket d is a dynamic slice at seg_starts[d] — n_dev cheap
-    # dynamic-slice ops instead of one big gather (random gathers are
-    # serialized on TPU: measured 151 ms at 2^24 in round 3).  Inputs are
-    # padded by cap sentinel rows so a slice never clamps.
+    # dynamic-slice ops instead of one big gather.  Inputs are padded by
+    # cap sentinel rows so a slice never clamps.
     pad_h = jnp.concatenate([suh, jnp.full(cap, sent, _U32)])
     pad_l = jnp.concatenate([sul, jnp.full(cap, sent, _U32)])
     pad_c = jnp.concatenate([scnt, jnp.zeros(cap, scnt.dtype)])
@@ -293,89 +217,23 @@ def exchange_and_merge(uh, ul, cnt, n_dev: int, cap: int, axis: str):
 
 # ---------------------------------------------------------------------------
 # Jitted steps (cached per geometry: rebuilding the shard_map'd closure
-# per call would defeat jit's compile cache — measured a 60 s recompile
-# per call through the remote transport)
+# per call would defeat jit's compile cache and recompile every call)
 
 
 @functools.lru_cache(maxsize=64)
-def _fe_window_step(mesh: Mesh, K: int, interpret: bool, V: int):
+def _local_count_step(mesh: Mesh, K: int, checked: bool = False):
     axis = mesh.axis_names[0]
-    mapped = jax.shard_map(
-        partial(_fe_body, K=K, interpret=interpret, V=V),
-        mesh=mesh,
-        in_specs=P(axis, None),
-        out_specs=(P(axis), P(axis), P(axis)),
-        # pallas_call's out_shape carries no varying-mesh-axes annotation
-        check_vma=False,
-    )
-    return jax.jit(mapped)
-
-
-@functools.lru_cache(maxsize=64)
-def _count_tail_only_step(mesh: Mesh, K: int, interpret: bool, checked: bool = False):
-    axis = mesh.axis_names[0]
-    spec = P(axis)  # 1-D table boundaries (see _compact_body)
-    outs = (spec, spec, spec, P(axis))
-    if checked:
-        outs = outs + (P(axis), P(axis))
-    mapped = jax.shard_map(
-        partial(_count_tail_body, K=K, interpret=interpret, checked=checked),
-        mesh=mesh,
-        in_specs=(P(axis), P(axis)),
-        out_specs=outs,
-        check_vma=False,  # fused Pallas RLE
-    )
-    return jax.jit(mapped)
-
-
-@functools.lru_cache(maxsize=64)
-def _local_count_step(
-    mesh: Mesh, K: int, use_pallas: bool, interpret: bool, V: int,
-    checked: bool = False,
-):
-    if use_pallas:
-        # split dispatch (FE | sort+RLE): the Mosaic front-end and the
-        # sort must not share a program or sort.0 pays a ~7.5 ms/2^24
-        # relayout (see pipelines.canonical_count._chunk_count_u32)
-        fe = _fe_window_step(mesh, K, interpret, V)
-        tail = _count_tail_only_step(mesh, K, interpret, checked)
-
-        def step(shard_view):
-            hi, lo, n_bad = fe(shard_view)
-            return (*tail(hi, lo), n_bad)
-
-        return step
-    axis = mesh.axis_names[0]
-    body = partial(
-        _local_count_body,
-        K=K,
-        axis=axis,
-        use_pallas=False,
-        interpret=interpret,
-        V=V,
-        checked=checked,
-    )
     spec = P(axis)  # 1-D table boundaries (see _compact_body)
     outs = (spec, spec, spec, P(axis), P(axis))
     if checked:
         outs = outs + (P(axis), P(axis))
     mapped = jax.shard_map(
-        body,
+        partial(_local_count_body, K=K, checked=checked),
         mesh=mesh,
         in_specs=P(axis, None),
         out_specs=outs,
     )
-    jitted = jax.jit(mapped)
-    if not checked:
-        return jitted
-
-    # normalize output order to match the pallas split step:
-    # (uh, ul, cnt, nu, n_valid, n_cnt, n_bad)
-    def step(shard_view):
-        uh, ul, cnt, nu, n_bad, n_valid, n_cnt = jitted(shard_view)
-        return uh, ul, cnt, nu, n_valid, n_cnt, n_bad
-
-    return step
+    return jax.jit(mapped)
 
 
 @functools.lru_cache(maxsize=64)
@@ -387,9 +245,6 @@ def _compact_step(mesh: Mesh):
         mesh=mesh,
         in_specs=(spec,) * 3,
         out_specs=(spec,) * 3,
-        # compact_counts uses the Mosaic compaction-tail kernel on TPU;
-        # pallas_call's out_shape carries no varying-mesh-axes annotation
-        check_vma=False,
     )
     return jax.jit(mapped)
 
@@ -403,9 +258,6 @@ def _merge_step(mesh: Mesh):
         mesh=mesh,
         in_specs=(spec,) * 6,
         out_specs=(spec, spec, spec, P(axis)),
-        # merge_compact_tables uses the Mosaic merge-tail kernel on TPU;
-        # pallas_call's out_shape carries no varying-mesh-axes annotation
-        check_vma=False,
     )
     return jax.jit(mapped)
 
@@ -431,68 +283,21 @@ def sharded_count_step(
     K: int,
     shard_len: int,
     cap: int,
-    use_pallas: bool = False,
-    interpret: bool = False,
-    V: int = 4096,
     checked: bool = False,
 ):
     """SPMD counting step for a fixed geometry: local count +
-    hash-prefix exchange.  On the Mosaic path this is TWO dispatches
-    (FE | sort+RLE+exchange) so the sort gets its own program and skips
-    the ~7.5 ms/2^24 relayout; on the jnp path it is one jit region.
-    Used for inputs that fit one chunk per device (and by the scaling
-    bench / multichip dryrun); the streaming driver composes the split
-    steps instead.  Takes the (n_dev, row) device array — uint32 view
-    rows when ``use_pallas`` else uint8 byte rows — and returns
-    ``(uh, ul, cnt, nu, n_bad, overflow)``.
+    hash-prefix exchange in one jit region.  Used for inputs that fit
+    one chunk per device (and by the scaling bench / multichip dryrun);
+    the streaming driver composes the split steps instead.  Takes the
+    (n_dev, row) uint8 device array and returns
+    ``(uh, ul, cnt, nu, n_bad, overflow)`` (plus the mesh-summed
+    ``n_valid, n_counted`` tallies with ``checked``).
     """
     axis = mesh.axis_names[0]
     n_dev = mesh.devices.size
 
-    if use_pallas:
-        # split dispatch (FE | sort+RLE+exchange): same relayout
-        # recovery as the single-chip flagship (_chunk_count_u32)
-        fe = _fe_window_step(mesh, K, interpret, V)
-
-        def tail_body(hi, lo, n_bad):
-            out = _count_tail_body(hi, lo, K, interpret, checked)
-            uh, ul, cnt, nu = out[:4]
-            uh, ul, cnt, nu, overflow = _exchange_body(
-                uh, ul, cnt, K, n_dev, cap, axis
-            )
-            total_bad = jax.lax.psum(jnp.sum(n_bad), axis)
-            res = (uh, ul, cnt, nu, total_bad[None], overflow)
-            if checked:
-                # conservation tallies summed over the mesh
-                n_valid = jax.lax.psum(out[4][0], axis)
-                n_cnt = jax.lax.psum(out[5][0], axis)
-                res = res + (n_valid[None], n_cnt[None])
-            return res
-
-        spec = P(axis)  # 1-D table boundaries (see _compact_body)
-        outs = (spec, spec, spec, P(axis), P(axis), P(axis))
-        if checked:
-            outs = outs + (P(axis), P(axis))
-        tail = jax.jit(
-            jax.shard_map(
-                tail_body,
-                mesh=mesh,
-                in_specs=(P(axis), P(axis), P(axis)),
-                out_specs=outs,
-                check_vma=False,  # fused Pallas RLE
-            )
-        )
-
-        def step(shard_view):
-            hi, lo, n_bad = fe(shard_view)
-            return tail(hi, lo, n_bad)
-
-        return step
-
-    def body(shard_view):
-        out = _local_count_body(
-            shard_view, K, axis, use_pallas, interpret, V, checked
-        )
+    def body(shard_bytes):
+        out = _local_count_body(shard_bytes, K, checked)
         uh, ul, cnt, nu, n_bad = out[:5]
         uh, ul, cnt, nu, overflow = _exchange_body(
             uh, ul, cnt, K, n_dev, cap, axis
@@ -527,8 +332,8 @@ def _fetch_np(x) -> np.ndarray:
 
     Under ``jax.distributed`` (multi-controller SPMD) each process holds
     only its addressable shards; ``process_allgather`` replicates the
-    value so every process sees the same full array — the DCN twin of a
-    plain ``np.asarray``.  The branch is on the PROCESS COUNT, never on
+    value so every process sees the same full array — the multi-process
+    twin of a plain ``np.asarray``.  The branch is on the PROCESS COUNT, never on
     per-array addressability: allgather is a collective, and a mesh that
     happens to be fully addressable on one process but not another (e.g.
     a 1-device mesh in a 2-process job) would deadlock if only some
@@ -573,30 +378,6 @@ def _shard_with_halo(arr: np.ndarray, n_dev: int, K: int, pad_byte: int = 0):
     return out, shard
 
 
-def _pick_v(n_bytes: int) -> int:
-    """Lane-tile width for the u32 kernel: 4096 for real workloads, the
-    smallest 128-multiple covering tiny (test) inputs otherwise."""
-    n4 = -(-n_bytes // 4)
-    for v in (128, 256, 512, 1024, 2048):
-        if n4 <= v:
-            return v
-    return 4096
-
-
-def _rows_to_u32_view(rows: np.ndarray, V: int):
-    """Pad byte rows with 'N' to a multiple of 4*V and view as '<u4'."""
-    n_dev, m = rows.shape
-    unit = 4 * V
-    pad = (-m) % unit
-    if pad:
-        rows = np.concatenate(
-            [rows, np.full((n_dev, pad), ord("N"), np.uint8)], axis=1
-        )
-    if not rows.flags["C_CONTIGUOUS"]:
-        rows = np.ascontiguousarray(rows)
-    return rows.view("<u4")
-
-
 def sharded_canonical_count(
     data,
     config: ShardedCountConfig = ShardedCountConfig(),
@@ -627,11 +408,6 @@ def sharded_canonical_count(
     if L < K:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
 
-    use_pallas = (
-        jax.default_backend() == "tpu"
-        if config.use_pallas is None
-        else config.use_pallas
-    )
     axis = mesh.axis_names[0]
     sharding = NamedSharding(mesh, P(axis, None))
 
@@ -649,13 +425,8 @@ def sharded_canonical_count(
         # single dispatch per device: fused local-count + exchange
         n_win = shard  # windows per shard
         cap = int(np.ceil(n_win * config.bucket_factor / n_dev))
-        V = _pick_v(shards.shape[1]) if use_pallas else 4096
-        step = sharded_count_step(
-            mesh, K, shard, cap, use_pallas, config.pallas_interpret, V,
-            checked=dbg,
-        )
-        view = _rows_to_u32_view(shards, V) if use_pallas else shards
-        out = step(_put_sharded(view, sharding))
+        step = sharded_count_step(mesh, K, shard, cap, checked=dbg)
+        out = step(_put_sharded(shards, sharding))
         uh, ul, cnt, nu, n_bad, overflow = out[:6]
         if dbg:
             # conservation inside each device's sort+RLE (psummed)
@@ -666,13 +437,12 @@ def sharded_canonical_count(
                     "checked mode: count conservation violated in the "
                     f"sharded local count — {total_valid} valid windows "
                     f"but {total_counted} counted (sentinel collision or "
-                    "kernel bug)"
+                    "counting bug)"
                 )
     else:
         uh, ul, cnt, nu, n_bad, overflow, total_valid = (
             _streamed_sharded_count(
-                shards, shard, mesh, config, use_pallas, sharding,
-                checked=dbg,
+                shards, shard, mesh, config, sharding, checked=dbg
             )
         )
 
@@ -718,7 +488,6 @@ def _streamed_sharded_count(
     shard: int,
     mesh: Mesh,
     config: ShardedCountConfig,
-    use_pallas: bool,
     sharding,
     checked: bool = False,
 ):
@@ -734,17 +503,14 @@ def _streamed_sharded_count(
     # each chunk row carries exactly `chunk` bytes; consecutive rows
     # overlap by K-1 bytes (stride chunk-(K-1)) so no window is lost or
     # duplicated at a chunk boundary — the same geometry as the
-    # single-chip streaming path.  Keeping the row at chunk_size (a
-    # power of two) instead of chunk_size + K-1 matters on TPU: XLA's
-    # sort pads to the next power of two, so a K-1-byte overhang doubles
-    # the per-chunk sort cost (measured 27.4 -> 47 ms/2^24 on v5e).
+    # single-chip streaming path.  The row stays at chunk_size (a power
+    # of two) instead of chunk_size + K-1 because a comparator sort pads
+    # to the next power of two, so a K-1-byte overhang would double the
+    # per-chunk sort.
     step_len = chunk - (K - 1)
     row_len = chunk  # uniform chunk rows ('N'-padded at the tail)
-    V = _pick_v(row_len) if use_pallas else 4096
 
-    count = _local_count_step(
-        mesh, K, use_pallas, config.pallas_interpret, V, checked
-    )
+    count = _local_count_step(mesh, K, checked)
     compact = _compact_step(mesh)
     merge = _merge_step(mesh)
 
@@ -782,7 +548,7 @@ def _streamed_sharded_count(
         # push to the level stack
         nonlocal dev_bad, dev_valid, dev_cnt
         if checked:
-            uh, ul, cnt, nu, n_valid, n_cnt, n_bad = out
+            uh, ul, cnt, nu, n_bad, n_valid, n_cnt = out
             dev_valid += int(_fetch_np(n_valid).sum())
             dev_cnt += int(_fetch_np(n_cnt).sum())
         else:
@@ -810,8 +576,7 @@ def _streamed_sharded_count(
                 ],
                 axis=1,
             )
-        view = _rows_to_u32_view(np.ascontiguousarray(rows), V) if use_pallas else rows
-        queue.push(count(_put_sharded(view, sharding)))
+        queue.push(count(_put_sharded(np.ascontiguousarray(rows), sharding)))
     queue.flush()
 
     tbl = stack.fold()
@@ -832,6 +597,6 @@ def _streamed_sharded_count(
                 "checked mode: count conservation violated in the "
                 f"streamed sharded count — {total_valid} valid windows "
                 f"but {total_counted} counted (sentinel collision or "
-                "kernel bug)"
+                "counting bug)"
             )
     return uh, ul, cnt, nu, np.array([total_bad]), overflow, total_valid

@@ -35,7 +35,7 @@ from ..ops.count import sort_count
 from ..ops.encode import classify_2bit, lookup_bytes
 from ..ops.windows import window_valid_mask
 from .mesh import data_mesh
-from .pipeline import _fetch_np, _put_sharded, exchange_and_merge
+from .pipeline import _fetch_np, _put_sharded
 
 __all__ = ["SixFrameCountConfig", "sharded_sixframe_aa_count"]
 
@@ -54,18 +54,9 @@ class SixFrameCountConfig:
     #: this stream chunk-by-chunk through the level-stack accumulator
     #: like the canonical pipeline — gigabase inputs never need a
     #: whole-slab dispatch.  Default 2^20 (~2^21 windows/chunk): the
-    #: same sort-stage economics as CountConfig.chunk_size — measured
-    #: 298.4 Mb/s vs 166.3 at 2^23-base chunks (ROUND6J_r04.jsonl).
+    #: same sort-stage economics as CountConfig.chunk_size (not yet
+    #: tuned on the H100, ROADMAP S4).
     chunk_size: int = 1 << 20
-    #: split FE | sort dispatch + fused Pallas RLE (None = auto: TPU only).
-    use_pallas: bool | None = None
-    #: fully fused Mosaic front-end (classify + codon + dual-strand AA
-    #: windows in one kernel; single-register for K <= 7, multi-limb for
-    #: K 8..32).  None = auto: follows use_pallas; explicit True without
-    #: the pallas path raises.
-    fused_fe: bool | None = None
-    #: run the RLE kernel in interpreter mode (CPU testing of that path).
-    pallas_interpret: bool = False
 
     def __post_init__(self):
         if not 1 <= self.K <= 32:
@@ -84,8 +75,7 @@ def _aa_stream(codes, tbl):
     c1 = jnp.concatenate([codes[1:], jnp.zeros(1, codes.dtype)])
     c2 = jnp.concatenate([codes[2:], jnp.zeros(2, codes.dtype)])
     cod_full = (codes << 4) | (c1 << 2) | c2
-    # gather-free codon->AA lookup (jnp.take measured 42 ms per
-    # 5.6M codons on v5e; random gathers serialize on TPU)
+    # gather-free codon->AA lookup (ops.encode.lookup_bytes)
     return lookup_bytes(tbl, cod_full).astype(_U32)
 
 
@@ -98,8 +88,6 @@ def _aa_windows_step3(aa, K: int):
     frames of one strand is exactly the set of windows at every base
     position, so no per-frame phase selection is needed — each source
     shift ``aa[3k:]`` is a stride-1 offset slice, not a strided read.
-    (The previous per-frame form paid 6 MXU stride_selects + 6 lookup
-    trees per strand pair: ~140 ms of the 199 ms/2^24 six-frame chunk.)
     """
     n = aa.shape[0]
     n_win = max(n - 3 * K + 1, 0)
@@ -152,61 +140,6 @@ def _strand_windows_mw(codes, certain, K: int, own_lo, own_hi, tbl):
     return limbs, valid & own
 
 
-def _sixframe_body_mw(shard_bytes, K: int, n_dev: int, cap: int, axis: str, tbl):
-    from ..ops.multiword import sort_count_mw
-    from .multiword import exchange_and_merge_mw
-
-    data = shard_bytes[0]
-    H = 3 * K
-    shard = data.shape[0] - 2 * H
-    codes, certain, _ambig = classify_2bit(data)
-    rc_codes = (codes ^ 3)[::-1]
-    rc_certain = certain[::-1]
-
-    fw_limbs, fw_valid = _strand_windows_mw(codes, certain, K, H, H + shard, tbl)
-    rv_limbs, rv_valid = _strand_windows_mw(rc_codes, rc_certain, K, H, H + shard, tbl)
-    M = len(fw_limbs)
-    limbs = tuple(
-        jnp.concatenate([fw_limbs[m], rv_limbs[m]]) for m in range(M)
-    )
-    valid = jnp.concatenate([fw_valid, rv_valid])
-    ulimbs, cnt, _ = sort_count_mw(limbs, valid, key_bits=8 * K)
-    ulimbs, cnt, nu, overflow = exchange_and_merge_mw(
-        ulimbs, cnt, n_dev, cap, axis
-    )
-    total_overflow = jax.lax.psum(overflow, axis)
-    n_windows = jax.lax.psum(jnp.sum(valid.astype(_I32)), axis)
-    return (
-        tuple(x[None] for x in ulimbs),
-        cnt[None],
-        nu[None],
-        n_windows[None],
-        total_overflow[None],
-    )
-
-
-def _sixframe_body(shard_bytes, K: int, n_dev: int, cap: int, axis: str, tbl):
-    data = shard_bytes[0]  # (H + shard + H,)
-    H = 3 * K
-    shard = data.shape[0] - 2 * H
-    codes, certain, _ambig = classify_2bit(data)
-
-    rc_codes = (codes ^ 3)[::-1]
-    rc_certain = certain[::-1]
-
-    fh, fl, fv = _strand_windows(codes, certain, K, H, H + shard, tbl)
-    rh, rl, rv = _strand_windows(rc_codes, rc_certain, K, H, H + shard, tbl)
-    hi = jnp.concatenate([fh, rh])
-    lo = jnp.concatenate([fl, rl])
-    valid = jnp.concatenate([fv, rv])
-
-    uh, ul, cnt, _ = sort_count(hi, lo, valid, key_bits=8 * K)
-    uh, ul, cnt, nu, overflow = exchange_and_merge(uh, ul, cnt, n_dev, cap, axis)
-    total_overflow = jax.lax.psum(overflow, axis)
-    n_windows = jax.lax.psum(jnp.sum(valid.astype(_I32)), axis)
-    return uh[None], ul[None], cnt[None], nu[None], n_windows[None], total_overflow[None]
-
-
 def _sixframe_local_body(rows, pad3, K: int, tbl, checked: bool):
     """Per-device six-frame window build + sort/RLE for ONE chunk row of
     shape (1, 2H + B) — the local-count half of the streamed pipeline
@@ -246,202 +179,31 @@ def _sixframe_local_body(rows, pad3, K: int, tbl, checked: bool):
     return out
 
 
-def _sixframe_fe_body(rows, pad3, K: int, tbl):
-    """Per-device six-frame front-end only (dispatch 1 of the split
-    local count): frame windows with invalid/unowned windows already
-    sentinelized, returned as 1-D streams (P(axis) out specs — a (1, n)
-    row would pay the rank-2 tiled-layout relayout in the sort program,
-    see ``pipeline._fe_body``)."""
-    from ..ops.count import SENTINEL
-
-    data = rows[0]
-    p3 = pad3[0]
-    H = 3 * K
-    body_len = data.shape[0] - 2 * H
-    codes, certain, _ambig = classify_2bit(data)
-    rc_codes = (codes ^ 3)[::-1]
-    rc_certain = certain[::-1]
-    fh, fl, fv = _strand_windows(codes, certain, K, H, H + body_len - p3, tbl)
-    rh, rl, rv = _strand_windows(
-        rc_codes, rc_certain, K, H + p3, H + body_len, tbl
-    )
-    hi = jnp.concatenate([fh, rh])
-    lo = jnp.concatenate([fl, rl])
-    valid = jnp.concatenate([fv, rv])
-    sent = jnp.asarray(SENTINEL, _U32)
-    hi = jnp.where(valid, hi, sent)
-    lo = jnp.where(valid, lo, sent)
-    n_valid = jnp.sum(valid, dtype=_I32)
-    return hi, lo, n_valid[None]
-
-
 import functools
 
 
-#: lane count per tile of the fused six-frame Mosaic kernel
-_V_SIX = 4096
-
-
-def _resolve_fused(config, use_pallas: bool) -> bool:
-    """Gate for the fused Mosaic front-end (shared by the K <= 7 and
-    multi-limb streamed drivers): explicit True without the pallas path
-    raises (silently dispatching u32 rows to the jnp step would return
-    wrong counts); None follows use_pallas."""
-    if config.fused_fe and not use_pallas:
-        raise ValueError(
-            "fused_fe=True requires the pallas path (use_pallas) — the "
-            "fused front-end is a Mosaic kernel"
-        )
-    return (
-        config.fused_fe if config.fused_fe is not None else True
-    ) and use_pallas
-
-
-def _fused_geometry(chunk_size: int, shard: int, H: int):
-    """Power-of-two row geometry for the fused front-end: device rows
-    pad to row4 bytes (a pow2 multiple of 4*_V_SIX) so the kernel's
-    2*row4 windows fit the sort's power of two exactly; the 24-byte tail
-    margin keeps every owned window's roll sources inside the padded
-    stream (anchors end 3K before the body edge; rolled reads reach at
-    most ~7 bytes further).  Returns (row4, B, row_len); row4 >= 16384 >
-    2H+27 for all K <= 32, so B >= 3."""
-    from ..ops.count import _next_pow2
-
-    lo_need = 2 * H + 24 + 3
-    row4 = max(4 * _V_SIX, _next_pow2(min(chunk_size, shard + lo_need)))
-    B = row4 - 2 * H - 24
-    B -= B % 3
-    return row4, B, B + 2 * H
-
-
-def _fused_chunk_args(shards, c: int, B: int, row_len: int, row4: int,
-                      H: int, b_true: int):
-    """One chunk's kernel inputs: the uniform pow2 u32 row (0x00 pad
-    flags as invalid) and the in-kernel ownership bounds clipped at
-    b_true (fw anchors [H, H+b), rv anchors [1, b+1))."""
-    rows = shards[:, c * B : c * B + row_len]
-    rows_p = np.zeros((shards.shape[0], row4), np.uint8)
-    rows_p[:, : rows.shape[1]] = rows
-    bounds = np.zeros(128, np.int32)
-    bounds[:4] = (H, H + b_true, 1, b_true + 1)
-    return rows_p.view("<u4"), bounds
-
-
-@functools.lru_cache(maxsize=64)
-def _sixframe_fe_fused_step(mesh: Mesh, K: int, tbl_bytes: bytes, interpret: bool):
-    """Fused Mosaic front-end (dispatch 1): raw u32 byte rows -> both
-    strands' sentinelized AA window streams + per-device valid-window
-    count, in ONE kernel (see ops/pallas/sixframe_kernel.py)."""
-    from ..ops.pallas.sixframe_kernel import (
-        sixframe_tbl16,
-        sixframe_windows_u32_pallas,
-    )
-
-    axis = mesh.axis_names[0]
-    tbl16 = sixframe_tbl16(tbl_bytes)
-
-    def body(rows_u32, bounds):
-        hi, lo, nv = sixframe_windows_u32_pallas(
-            rows_u32[0], bounds, K, V=_V_SIX, interpret=interpret,
-            tbl16=tbl16,
-        )
-        return hi, lo, nv[None]
-
-    mapped = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(axis, None), P(None)),
-        out_specs=(P(axis), P(axis), P(axis)),
-        check_vma=False,
-    )
-    return jax.jit(mapped)
-
-
-@functools.lru_cache(maxsize=64)
-def _sixframe_fe_step(mesh: Mesh, K: int, tbl_bytes: bytes):
-    axis = mesh.axis_names[0]
-    tbl = np.frombuffer(tbl_bytes, np.uint8)
-    mapped = jax.shard_map(
-        partial(_sixframe_fe_body, K=K, tbl=tbl),
-        mesh=mesh,
-        in_specs=(P(axis, None), P(None)),
-        out_specs=(P(axis), P(axis), P(axis)),
-    )
-    return jax.jit(mapped)
-
-
-@functools.lru_cache(maxsize=64)
-def _sixframe_tail_step(
-    mesh: Mesh, K: int, interpret: bool, checked: bool = False
-):
-    """Sort + fused Pallas RLE for the sentinelized AA window streams
-    (dispatch 2 of the split local count)."""
-    axis = mesh.axis_names[0]
-
-    def body(hi, lo):
-        uh, ul, cnt, nu = sort_count(
-            hi, lo, None, use_pallas=True, interpret=interpret,
-            key_bits=8 * K,
-        )
-        # 1-D table boundaries (see pipeline._compact_body)
-        out = (uh, ul, cnt, nu[None])
-        if checked:
-            out = out + (jnp.sum(cnt, dtype=_I32)[None],)
-        return out
-
-    spec = P(axis)
-    outs = (spec, spec, spec, P(axis))
-    if checked:
-        outs = outs + (P(axis),)
-    mapped = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(axis), P(axis)),
-        out_specs=outs,
-        check_vma=False,  # fused Pallas RLE
-    )
-    return jax.jit(mapped)
+def _chunk_geometry(chunk_size: int, shard: int, K: int):
+    """(body length B, chunk count, row length) of the streamed drivers:
+    B is a multiple of 3 that covers the slab in equal rows, each row
+    carrying 3K bases of halo on both sides."""
+    B = max(min(chunk_size - chunk_size % 3, shard), 3)
+    # a sort that pads to the next power of two doubles when the window
+    # stream is only a few entries past 2^m: when the overhang is small,
+    # shave the body so the 2(B + 3K + 1) windows fit exactly
+    T = 2 * (B + 3 * K + 1)
+    m = T.bit_length() - 1
+    if T > (1 << m) and (T - (1 << m)) <= (1 << m) // 16:
+        B2 = (1 << m) // 2 - 3 * K - 1
+        B = max(B2 - B2 % 3, 3)
+    return B, -(-shard // B), B + 2 * 3 * K
 
 
 @functools.lru_cache(maxsize=64)
 def _sixframe_local_step(
-    mesh: Mesh,
-    K: int,
-    tbl_bytes: bytes,
-    checked: bool = False,
-    use_pallas: bool = False,
-    interpret: bool = False,
-    fused: bool = False,
+    mesh: Mesh, K: int, tbl_bytes: bytes, checked: bool = False
 ):
     """Cached per-chunk local count (no exchange) for streaming.
-
-    With ``use_pallas``: TWO dispatches (FE | sort+RLE) so the sort gets
-    its own program — the same relayout recovery as the flagship
-    (``pipelines.canonical_count._chunk_count_u32``) — and the RLE runs
-    as the fused Mosaic kernel.  With ``fused`` the FE dispatch is the
-    fully fused Mosaic kernel over u32 rows (step args become
-    ``(rows_u32, bounds)``).  Output order matches the jnp form:
-    (uh, ul, cnt, nu, n_valid[, n_cnt])."""
-    if use_pallas and fused:
-        fe = _sixframe_fe_fused_step(mesh, K, tbl_bytes, interpret)
-        tail = _sixframe_tail_step(mesh, K, interpret, checked)
-
-        def step(rows_u32, bounds):
-            hi, lo, n_valid = fe(rows_u32, bounds)
-            out = tail(hi, lo)
-            return (*out[:4], n_valid, *out[4:])
-
-        return step
-    if use_pallas:
-        fe = _sixframe_fe_step(mesh, K, tbl_bytes)
-        tail = _sixframe_tail_step(mesh, K, interpret, checked)
-
-        def step(rows, pad3):
-            hi, lo, n_valid = fe(rows, pad3)
-            out = tail(hi, lo)
-            return (*out[:4], n_valid, *out[4:])
-
-        return step
+    Outputs (uh, ul, cnt, nu, n_valid[, n_cnt])."""
     axis = mesh.axis_names[0]
     tbl = np.frombuffer(tbl_bytes, np.uint8)
     body = partial(_sixframe_local_body, K=K, tbl=tbl, checked=checked)
@@ -454,88 +216,6 @@ def _sixframe_local_step(
         mesh=mesh,
         # pad3 is replicated (same tail-clip on every device)
         in_specs=(P(axis, None), P(None)),
-        out_specs=outs,
-    )
-    return jax.jit(mapped)
-
-
-@functools.lru_cache(maxsize=64)
-def _sixframe_step(mesh: Mesh, K: int, cap: int, tbl_bytes: bytes):
-    """Cached jitted SPMD step (rebuilding per call would recompile)."""
-    n_dev = mesh.devices.size
-    axis = mesh.axis_names[0]
-    tbl = np.frombuffer(tbl_bytes, np.uint8)  # host constants for lookup_bytes
-    body = partial(
-        _sixframe_body, K=K, n_dev=n_dev, cap=cap, axis=axis, tbl=tbl
-    )
-    mapped = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=P(axis, None),
-        out_specs=(P(axis, None), P(axis, None), P(axis, None), P(axis), P(axis), P(axis)),
-    )
-    return jax.jit(mapped)
-
-
-@functools.lru_cache(maxsize=64)
-def _sixframe_fe_fused_step_mw(
-    mesh: Mesh, K: int, tbl_bytes: bytes, interpret: bool
-):
-    """Multi-limb fused Mosaic front-end (dispatch 1): u32 byte rows ->
-    M limb streams + explicit validity + per-device valid count."""
-    from ..ops.pallas.sixframe_kernel import (
-        sixframe_tbl16,
-        sixframe_windows_mw_u32_pallas,
-    )
-
-    axis = mesh.axis_names[0]
-    tbl16 = sixframe_tbl16(tbl_bytes)
-
-    def body(rows_u32, bounds):
-        limbs, valid, nv = sixframe_windows_mw_u32_pallas(
-            rows_u32[0], bounds, K, V=_V_SIX, interpret=interpret,
-            tbl16=tbl16,
-        )
-        return (*limbs, valid, nv[None])
-
-    from ..ops.multiword import n_limbs
-
-    M = n_limbs(K, bps=8)
-    mapped = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(axis, None), P(None)),
-        out_specs=tuple(P(axis) for _ in range(M + 2)),
-        check_vma=False,
-    )
-    return jax.jit(mapped)
-
-
-@functools.lru_cache(maxsize=64)
-def _sixframe_tail_step_mw(mesh: Mesh, K: int, checked: bool = False):
-    """Multi-limb sort-count over the fused FE's streams (dispatch 2)."""
-    from ..ops.multiword import n_limbs, sort_count_mw
-
-    axis = mesh.axis_names[0]
-    M = n_limbs(K, bps=8)
-
-    def body(*args):
-        limbs = args[:M]
-        valid = args[M] != 0
-        ulimbs, cnt, nu = sort_count_mw(limbs, valid, key_bits=8 * K)
-        out = (ulimbs, cnt, nu[None])
-        if checked:
-            out = out + (jnp.sum(cnt, dtype=_I32)[None],)
-        return out
-
-    spec = P(axis)  # 1-D table boundaries (see pipeline._compact_body)
-    outs = (tuple(spec for _ in range(M)), spec, P(axis))
-    if checked:
-        outs = outs + (P(axis),)
-    mapped = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(spec,) * (M + 1),
         out_specs=outs,
     )
     return jax.jit(mapped)
@@ -575,23 +255,10 @@ def _sixframe_local_body_mw(rows, pad3, K: int, tbl, checked: bool):
 
 @functools.lru_cache(maxsize=64)
 def _sixframe_local_step_mw(
-    mesh: Mesh, K: int, tbl_bytes: bytes, checked: bool = False,
-    fused: bool = False, interpret: bool = False,
+    mesh: Mesh, K: int, tbl_bytes: bytes, checked: bool = False
 ):
     from ..ops.multiword import n_limbs
 
-    if fused:
-        M = n_limbs(K, bps=8)
-        fe = _sixframe_fe_fused_step_mw(mesh, K, tbl_bytes, interpret)
-        tail = _sixframe_tail_step_mw(mesh, K, checked)
-
-        def step(rows_u32, bounds):
-            out = fe(rows_u32, bounds)
-            limbs, valid, n_valid = out[:M], out[M], out[M + 1]
-            tout = tail(*limbs, valid)
-            return (*tout[:3], n_valid, *tout[3:])
-
-        return step
     axis = mesh.axis_names[0]
     M = n_limbs(K, bps=8)
     tbl = np.frombuffer(tbl_bytes, np.uint8)
@@ -693,37 +360,11 @@ def _streamed_sixframe_count_mw(
 
     n_dev = mesh.devices.size
     K = config.K
-    H = 3 * K
     M = n_limbs(K, bps=8)
     checked = checked_mode()
-    use_pallas = (
-        jax.default_backend() == "tpu"
-        if config.use_pallas is None
-        else config.use_pallas
-    )
-    fused = _resolve_fused(config, use_pallas)
+    B, n_chunks, row_len = _chunk_geometry(config.chunk_size, shard, K)
 
-    if fused:
-        row4, B, row_len = _fused_geometry(config.chunk_size, shard, H)
-        n_chunks = -(-shard // B)
-    else:
-        B = min(config.chunk_size - config.chunk_size % 3, shard)
-        B = max(B, 3)
-        # XLA's sort pads to the next power of two: a window stream only a
-        # few entries past 2^m doubles the sort (measured 114 vs ~59 ms at
-        # 2^25+44 windows).  When the overhang is small, shave the body so
-        # the 2(B + 3K + 1) windows fit exactly.
-        T = 2 * (B + 3 * K + 1)
-        m = T.bit_length() - 1
-        if T > (1 << m) and (T - (1 << m)) <= (1 << m) // 16:
-            B2 = (1 << m) // 2 - 3 * K - 1
-            B = max(B2 - B2 % 3, 3)
-        n_chunks = -(-shard // B)
-        row_len = B + 2 * H
-
-    count = _sixframe_local_step_mw(
-        mesh, K, tbl_bytes, checked, fused, config.pallas_interpret
-    )
+    count = _sixframe_local_step_mw(mesh, K, tbl_bytes, checked)
     compact = _compact_step_mw(mesh, M)
     merge = _merge_step_mw(mesh, M)
 
@@ -759,12 +400,6 @@ def _streamed_sixframe_count_mw(
     for c in range(n_chunks):
         rows = shards[:, c * B : c * B + row_len]
         b_true = min(B, shard - c * B)
-        if fused:
-            view, bounds = _fused_chunk_args(
-                shards, c, B, row_len, row4, H, b_true
-            )
-            queue.push(count(_put_sharded(view, sharding), bounds))
-            continue
         if rows.shape[1] < row_len:
             rows = np.concatenate(
                 [rows, np.zeros((n_dev, row_len - rows.shape[1]), np.uint8)],
@@ -793,33 +428,6 @@ def _streamed_sixframe_count_mw(
                 f"windows but {total_counted} counted"
             )
     return ulimbs, cnt, overflow, total_valid
-
-
-@functools.lru_cache(maxsize=64)
-def _sixframe_step_mw(mesh: Mesh, K: int, cap: int, tbl_bytes: bytes):
-    """Cached multi-limb SPMD step for K > 7 amino acids."""
-    from ..ops.multiword import n_limbs
-
-    n_dev = mesh.devices.size
-    axis = mesh.axis_names[0]
-    M = n_limbs(K, bps=8)
-    tbl = np.frombuffer(tbl_bytes, np.uint8)  # host constants for lookup_bytes
-    body = partial(
-        _sixframe_body_mw, K=K, n_dev=n_dev, cap=cap, axis=axis, tbl=tbl
-    )
-    mapped = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=P(axis, None),
-        out_specs=(
-            tuple(P(axis, None) for _ in range(M)),
-            P(axis, None),
-            P(axis),
-            P(axis),
-            P(axis),
-        ),
-    )
-    return jax.jit(mapped)
 
 
 def sharded_sixframe_aa_count(
@@ -966,38 +574,10 @@ def _streamed_sixframe_count(
 
     n_dev = mesh.devices.size
     K = config.K
-    H = 3 * K
     checked = checked_mode()
-    use_pallas = (
-        jax.default_backend() == "tpu"
-        if config.use_pallas is None
-        else config.use_pallas
-    )
-    fused = _resolve_fused(config, use_pallas) and K <= 7
+    B, n_chunks, row_len = _chunk_geometry(config.chunk_size, shard, K)
 
-    if fused:
-        row4, B, row_len = _fused_geometry(config.chunk_size, shard, H)
-        n_chunks = -(-shard // B)
-    else:
-        # chunk body length: multiple of 3, covers the slab in equal rows
-        B = min(config.chunk_size - config.chunk_size % 3, shard)
-        B = max(B, 3)
-        # XLA's sort pads to the next power of two: a window stream only a
-        # few entries past 2^m doubles the sort (measured 114 vs ~59 ms at
-        # 2^25+44 windows).  When the overhang is small, shave the body so
-        # the 2(B + 3K + 1) windows fit exactly.
-        T = 2 * (B + 3 * K + 1)
-        m = T.bit_length() - 1
-        if T > (1 << m) and (T - (1 << m)) <= (1 << m) // 16:
-            B2 = (1 << m) // 2 - 3 * K - 1
-            B = max(B2 - B2 % 3, 3)
-        n_chunks = -(-shard // B)
-        row_len = B + 2 * H
-
-    count = _sixframe_local_step(
-        mesh, K, tbl_bytes, checked, use_pallas, config.pallas_interpret,
-        fused,
-    )
+    count = _sixframe_local_step(mesh, K, tbl_bytes, checked)
     compact = _compact_step(mesh)
     merge = _merge_step(mesh)
 
@@ -1035,12 +615,6 @@ def _streamed_sixframe_count(
         # body bytes actually inside the slab body (the rest of the row's
         # body region is right-halo data owned by the next chunk/device)
         b_true = min(B, shard - c * B)
-        if fused:
-            view, bounds = _fused_chunk_args(
-                shards, c, B, row_len, row4, H, b_true
-            )
-            queue.push(count(_put_sharded(view, sharding), bounds))
-            continue
         if rows.shape[1] < row_len:
             # tail chunk: pad the row to the uniform dispatch shape with
             # 0x00; ownership clips at b_true so nothing double-counts

@@ -31,13 +31,6 @@ from ..ops.count import (
 from ..ops.encode import classify_2bit
 from ..ops.windows import canonical_windows_from_codes, window_valid_mask
 
-
-def _on_tpu() -> bool:
-    import jax
-
-    # Mosaic kernels lower only on TPU; other accelerators take jnp paths.
-    return jax.default_backend() == "tpu"
-
 __all__ = [
     "CountConfig",
     "canonical_count",
@@ -58,16 +51,10 @@ class CountConfig:
     skip_ambiguous: bool = True
     #: bases per jitted dispatch; inputs longer than this are streamed.
     #: None = auto: 2^20 for K <= 31, 2^19 for the K > 31 multi-limb
-    #: pipeline.  XLA's sort is a comparator network with O(log^2 n)
-    #: stages, so smaller chunks cost fewer stages per element — the
-    #: per-chunk dispatch measured 771.3 Mb/s at 2^20 (1.6% spread) vs
-    #: 720.3 at 2^21 and 504.2 at 2^24 (ROUND6B/6C_r04.jsonl; the
-    #: flagship's 2^19 rises to 814.5 but with 5.8% spread and doubled
-    #: per-chunk streaming overheads, while the multiword one-jit
-    #: dispatch at 2^19 is both faster and tight — ROUND7C_r05.jsonl).
+    #: pipeline.  Both were tuned for a comparator-network sort, where
+    #: smaller chunks cost fewer stages per element; they are not yet
+    #: tuned on the H100 (ROADMAP S4).
     chunk_size: int | None = None
-    #: use the fused Mosaic window kernel; None = auto (TPU backends only).
-    use_pallas: bool | None = None
 
     def __post_init__(self):
         if not 1 <= self.K <= 100:
@@ -84,28 +71,9 @@ class CountConfig:
         return (1 << 19) if self.K > 31 else (1 << 20)
 
 
-@partial(jax.jit, static_argnames=("K", "use_pallas"))
-def _chunk_canonical(bytes_u8, K: int, use_pallas: bool = False):
-    """One chunk: bytes -> (canonical hi, lo, valid, n_invalid_bytes, n_ambig).
-
-    With ``use_pallas`` the fused Mosaic kernel produces the windows in
-    offset-major layout; counting is order-agnostic, so the mask is
-    simply permuted to match (see ops/pallas/window_kernel.py).
-    """
-    if use_pallas:
-        from ..ops.pallas.window_kernel import (
-            canonical_windows_bytes_flat_pallas,
-        )
-
-        # fully fused front-end: classify + pack + the error counters all
-        # happen inside the kernel (one HBM read of the bytes, no
-        # materialized code/flag arrays, no separate classify pass), and
-        # the outputs are written flat (no relayout before the sort).
-        # Invalid windows come back pre-sentineled, no mask array needed.
-        hi, lo, n_bad, n_amb = canonical_windows_bytes_flat_pallas(
-            bytes_u8, K
-        )
-        return hi, lo, None, n_bad, n_amb
+@partial(jax.jit, static_argnames=("K",))
+def _chunk_canonical(bytes_u8, K: int):
+    """One chunk: bytes -> (canonical hi, lo, valid, n_invalid_bytes, n_ambig)."""
     codes, certain, ambig = classify_2bit(bytes_u8)
     invalid = ~(certain | ambig)
     hi, lo = canonical_windows_from_codes(codes, K)
@@ -113,98 +81,23 @@ def _chunk_canonical(bytes_u8, K: int, use_pallas: bool = False):
     return hi, lo, valid, jnp.sum(invalid), jnp.sum(ambig)
 
 
-@partial(jax.jit, static_argnames=("K", "use_pallas"))
-def _chunk_count(bytes_u8, K: int, use_pallas: bool = False):
-    hi, lo, valid, n_invalid, n_ambig = _chunk_canonical(
-        bytes_u8, K, use_pallas
-    )
-    uh, ul, cnt, nu = sort_count(
-        hi, lo, valid, use_pallas=use_pallas, key_bits=2 * K
-    )
+@partial(jax.jit, static_argnames=("K",))
+def _chunk_count(bytes_u8, K: int):
+    hi, lo, valid, n_invalid, n_ambig = _chunk_canonical(bytes_u8, K)
+    uh, ul, cnt, nu = sort_count(hi, lo, valid, key_bits=2 * K)
     return uh, ul, cnt, nu, n_invalid, n_ambig
 
 
-#: the fused u32 kernel's lane-tile width; byte chunks are host-padded
-#: with 'N' to a multiple of 4 * _V_U32 bytes (a zero-copy '<u4' view)
-_V_U32 = 4096
-
-
-def _pad_to_u32_view(chunk: np.ndarray):
-    """Host-side prep for the u32 front-end: pad bytes with 'N' to a
-    multiple of 4*V and return (little-endian u32 view, n_pad_bytes).
-    Zero device work — this replaces the in-jit pad copy, the device
-    bitcast, and the (4, W) transpose (~28 ms at 2^26 on v5e)."""
-    unit = 4 * _V_U32
-    pad = (-chunk.shape[0]) % unit
-    if pad or not chunk.flags["C_CONTIGUOUS"]:
-        chunk = np.concatenate([chunk, np.full(pad, ord("N"), np.uint8)])
-    return chunk.view("<u4"), pad
-
-
 @partial(jax.jit, static_argnames=("K",))
-def _fe_u32(v_u32, K: int):
-    """Dispatch 1 of the TPU hot path: the fused u32 Mosaic front-end."""
-    from ..ops.pallas.window_kernel import canonical_windows_u32_pallas
-
-    return canonical_windows_u32_pallas(v_u32, K, V=_V_U32)
-
-
-@partial(jax.jit, static_argnames=("K", "checked"))
-def _count_u32(hi, lo, K: int, checked: bool = False):
-    """Dispatch 2 of the TPU hot path: sort -> fused Pallas RLE."""
-    from ..ops.count import SENTINEL
-
-    uh, ul, cnt, nu = sort_count(hi, lo, None, use_pallas=True, key_bits=2 * K)
-    if not checked:
-        return uh, ul, cnt, nu
-    sent = jnp.asarray(SENTINEL, jnp.uint32)
-    n_valid = jnp.sum((hi != sent) | (lo != sent))
-    return uh, ul, cnt, nu, n_valid, jnp.sum(cnt)
-
-
-def _chunk_count_u32(v_u32, K: int, checked: bool = False):
-    """TPU hot path: fused u32 front-end kernel | sort -> fused RLE.
-
-    Deliberately TWO dispatches, not one jit: when the Mosaic front-end
-    and the sort share a program, XLA materializes the kernel outputs in
-    a sort-hostile layout and ``sort.0`` pays a ~7.5 ms relayout per 2^24
-    chunk (35.0 ms fused vs 27.4 ms split, v5e round-5 profile; an
-    in-jit ``optimization_barrier`` does NOT recover it on a healthy
-    chip).  The physical split runs the whole chunk at 33.5 ms vs 40.9 ms
-    fused — the single change that lifted the flagship from 8.2x to 10x
-    baseline.  Dispatches are async, so the extra host round trip
-    overlaps device work in the streaming loop.
-    """
-    hi, lo, n_bad, n_amb = _fe_u32(v_u32, K)
-    out = _count_u32(hi, lo, K, checked=checked)
-    if not checked:
-        uh, ul, cnt, nu = out
-        return uh, ul, cnt, nu, n_bad, n_amb
-    uh, ul, cnt, nu, n_valid, n_cnt = out
-    return uh, ul, cnt, nu, n_bad, n_amb, n_valid, n_cnt
-
-
-@partial(jax.jit, static_argnames=("K", "use_pallas"))
-def _chunk_count_checked(bytes_u8, K: int, use_pallas: bool = False):
+def _chunk_count_checked(bytes_u8, K: int):
     """Checked-mode variant: also returns (n_valid_windows, n_counted) for
     the count-conservation assertion (every valid window counted exactly
     once) — the kernel-level assert path of checked mode.  A violation
     means a precondition broke (e.g. a real register colliding with the
-    count sentinel) or a kernel bug."""
-    from ..ops.count import SENTINEL
-
-    hi, lo, valid, n_invalid, n_ambig = _chunk_canonical(
-        bytes_u8, K, use_pallas
-    )
-    if valid is None:
-        sent = jnp.asarray(SENTINEL, jnp.uint32)
-        n_valid = jnp.sum((hi != sent) | (lo != sent))
-    else:
-        n_valid = jnp.sum(valid)
-    uh, ul, cnt, nu = sort_count(
-        hi, lo, valid, use_pallas=use_pallas, key_bits=2 * K
-    )
-    return uh, ul, cnt, nu, n_invalid, n_ambig, n_valid, jnp.sum(cnt)
+    count sentinel) or a counting bug."""
+    hi, lo, valid, n_invalid, n_ambig = _chunk_canonical(bytes_u8, K)
+    uh, ul, cnt, nu = sort_count(hi, lo, valid, key_bits=2 * K)
+    return uh, ul, cnt, nu, n_invalid, n_ambig, jnp.sum(valid), jnp.sum(cnt)
 
 
 def _as_byte_array(data) -> np.ndarray:
@@ -267,9 +160,6 @@ def canonical_count_bytes(
     dev_invalid = 0
     dev_ambig = 0
     total_pad = 0
-    use_pallas = (
-        _on_tpu() if config.use_pallas is None else config.use_pallas
-    )
     from ..utils.debug import checked_mode
 
     dbg = checked_mode()
@@ -325,15 +215,10 @@ def canonical_count_bytes(
             chunk = np.concatenate(
                 [chunk, np.full(pad, ord("N"), np.uint8)]
             )
-        if use_pallas:
-            # TPU hot path: host-side u32 view, fused Mosaic front-end
-            v, host_pad = _pad_to_u32_view(chunk)
-            total_pad += host_pad
-            out = _chunk_count_u32(jnp.asarray(v), K, checked=track)
-        elif track:
-            out = _chunk_count_checked(jnp.asarray(chunk), K, use_pallas)
+        if track:
+            out = _chunk_count_checked(jnp.asarray(chunk), K)
         else:
-            out = _chunk_count(jnp.asarray(chunk), K, use_pallas)
+            out = _chunk_count(jnp.asarray(chunk), K)
         total_pad += pad
         if len(starts) == 1:
             # single dispatch: no merge, no compaction needed (the host
@@ -365,7 +250,7 @@ def canonical_count_bytes(
             "checked mode: count conservation violated — "
             f"{int(np.asarray(dev_valid))} valid windows but "
             f"{int(np.asarray(dev_counted))} counted (sentinel "
-            "collision or kernel bug)"
+            "collision or counting bug)"
         )
 
     uh, ul, cnt = (np.asarray(x) for x in acc)
@@ -411,13 +296,6 @@ def _canonical_count_multiword(data, config: CountConfig):
     if L < K:
         return np.zeros(0, object), np.zeros(0, np.int64)
 
-    use_pallas = (
-        _on_tpu() if config.use_pallas is None else config.use_pallas
-    )
-    # the fused Mosaic front-end covers 32 <= K <= 63 (M <= 4 limbs);
-    # wider kmers take the jnp path
-    use_pallas = use_pallas and K <= 63
-
     @partial(jax.jit, static_argnames=("K",))
     def chunk_fn(bytes_u8, K):
         codes, certain, ambig = classify_2bit(bytes_u8)
@@ -427,34 +305,6 @@ def _canonical_count_multiword(data, config: CountConfig):
         ulimbs, counts, nu = sort_count_mw(limbs, valid, key_bits=2 * K)
         return ulimbs, counts, nu, jnp.sum(invalid), jnp.sum(ambig)
 
-    @partial(jax.jit, static_argnames=("K", "interpret"))
-    def chunk_fn_u32(v_u32, K, interpret=False):
-        """ONE jit: fused multi-limb Mosaic front-end + sort-count.
-        Sentinel (all-ones) rows mark invalid windows — safe because a
-        canonical register is never all-ones (rc of all-ones is 0).
-
-        Unlike K <= 31 (split dispatches — _chunk_count_u32), the
-        one-jit form WINS for multiword at the small default chunks:
-        627.6 vs 530.8 Mb/s at 2^19, 487.0 vs 486.0 at 2^20 on v5e
-        (ROUND7B/7C_r05.jsonl) — the extra dispatch round trip costs
-        more than the M-operand sort's relayout exposure."""
-        from ..ops.pallas.multiword_kernel import canonical_windows_mw_pallas
-
-        limbs, n_bad, n_amb = canonical_windows_mw_pallas(
-            v_u32, K, V=_V_U32, interpret=interpret
-        )
-        ones = jnp.asarray(0xFFFFFFFF, jnp.uint32)
-        is_sent = None
-        for x in limbs:
-            s = x == ones
-            is_sent = s if is_sent is None else is_sent & s
-        ulimbs, counts, nu = sort_count_mw(limbs, ~is_sent, key_bits=2 * K)
-        return ulimbs, counts, nu, n_bad, n_amb
-
-    # K > 31 resolves to 2^19 default chunks (resolved_chunk_size): the
-    # M-key sort keeps the same O(log^2 n) stage economics, and 2^19
-    # measured 486.7 Mb/s (2.4% spread) vs 402.8 at 2^20 in interleaved
-    # passes (ROUND7C_r05.jsonl)
     # stride = windows per chunk; the old max(..., K) clamp skipped
     # window starts whenever K <= chunk_size < 2K-1 (round-4 review)
     step = chunk_size - (K - 1)
@@ -500,14 +350,7 @@ def _canonical_count_multiword(data, config: CountConfig):
         if len(starts) > 1 and chunk.shape[0] < chunk_size:
             pad = chunk_size - chunk.shape[0]
             chunk = np.concatenate([chunk, np.full(pad, ord("N"), np.uint8)])
-        if use_pallas:
-            v, host_pad = _pad_to_u32_view(chunk)
-            total_pad += host_pad
-            ulimbs, counts, nu, n_inv, n_amb = chunk_fn_u32(
-                jnp.asarray(v), K, not _on_tpu()
-            )
-        else:
-            ulimbs, counts, nu, n_inv, n_amb = chunk_fn(jnp.asarray(chunk), K)
+        ulimbs, counts, nu, n_inv, n_amb = chunk_fn(jnp.asarray(chunk), K)
         total_pad += pad
         if len(starts) == 1:
             dev_invalid, dev_ambig = n_inv, n_amb

@@ -32,46 +32,15 @@ def _prep(data):
     return np.frombuffer(bytes(data), dtype=np.uint8)
 
 
-def _on_tpu() -> bool:
-    # Mosaic kernels lower only on TPU; any other accelerator must take
-    # the jnp path.
-    return jax.default_backend() == "tpu"
-
-
-def _use_pallas(K: int, bps: int = 2) -> bool:
-    # The general window kernel needs sentinel headroom (K*bps <= 62);
-    # K=32 at 2 bits must fall back to the jnp window builder.
-    return _on_tpu() and 1 <= K * bps <= 62
-
-
-@partial(jax.jit, static_argnames=("K", "canonical", "use_pallas", "interpret"))
-def _extract(
-    bytes_u8, K: int, canonical: bool, use_pallas: bool = False, interpret: bool = False
-):
+@partial(jax.jit, static_argnames=("K", "canonical"))
+def _extract(bytes_u8, K: int, canonical: bool):
     codes, certain, ambig = classify_2bit(bytes_u8)
     invalid = ~(certain | ambig)
-    if use_pallas:
-        # Mosaic window kernel (offset-major (P, Q) layout), restored to
-        # position order by a transpose — 6 ms vs 344 ms for the jnp
-        # window builder at 2^26 on v5e.  Invalid windows come back as
-        # the count sentinel, which no valid K<=31 kmer can equal.
-        from ..ops.count import SENTINEL
-        from ..ops.pallas.general_kernel import windows_pallas_general
-
-        h2, l2 = windows_pallas_general(
-            codes, certain, K, bps=2, canonical=canonical, interpret=interpret
-        )
-        n = max(codes.shape[0] - K + 1, 0)
-        hi = h2.T.reshape(-1)[:n]
-        lo = l2.T.reshape(-1)[:n]
-        sent = jnp.asarray(SENTINEL, jnp.uint32)
-        valid = ~((hi == sent) & (lo == sent))
+    if canonical:
+        hi, lo = canonical_windows_from_codes(codes, K)
     else:
-        if canonical:
-            hi, lo = canonical_windows_from_codes(codes, K)
-        else:
-            hi, lo = windows_from_codes(codes, K)
-        valid = window_valid_mask(certain, K)
+        hi, lo = windows_from_codes(codes, K)
+    valid = window_valid_mask(certain, K)
     return hi, lo, valid, jnp.sum(invalid), jnp.sum(ambig)
 
 
@@ -85,7 +54,7 @@ def extract_kmers(data, K: int = 31, canonical: bool = False, skip_ambiguous: bo
     arr = _prep(data)
     if arr.size < K:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
-    hi, lo, valid, n_inv, n_amb = _extract(jnp.asarray(arr), K, canonical, _use_pallas(K))
+    hi, lo, valid, n_inv, n_amb = _extract(jnp.asarray(arr), K, canonical)
     if int(n_inv):
         raise EncodeError(DNAAlphabet2(), "<batch input>")
     if int(n_amb) and not skip_ambiguous:
@@ -98,16 +67,12 @@ def extract_kmers(data, K: int = 31, canonical: bool = False, skip_ambiguous: bo
 def spaced_kmers(data, K: int, J: int, canonical: bool = False):
     """K-mers sampled at stride J (SpacedKmers); errors on any ambiguity
     inside sampled windows, like the scalar iterator."""
-    from ..ops.stride import stride_select
-
     arr = _prep(data)
     if arr.size < K:
         return np.zeros(0, np.uint64)
-    hi, lo, valid, n_inv, _ = _extract(jnp.asarray(arr), K, canonical, _use_pallas(K))
-    # stride via the MXU selection matmul: x[::J] as a strided slice is
-    # element-serialized on TPU (245 ms per 2^26 vs ~3 ms — ops/stride.py)
-    vals = u64ops.to_numpy((stride_select(hi, J), stride_select(lo, J)))
-    mask = np.asarray(stride_select(valid.astype(jnp.uint32), J)) != 0
+    hi, lo, valid, n_inv, _ = _extract(jnp.asarray(arr), K, canonical)
+    vals = u64ops.to_numpy((hi[::J], lo[::J]))
+    mask = np.asarray(valid[::J])
     if not mask.all():
         raise EncodeError(DNAAlphabet2(), "<ambiguous base in sampled window>")
     if int(n_inv):
@@ -183,7 +148,7 @@ def minimizer_select(
     n = arr.size - K + 1
     if n < W:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
-    hi, lo, valid, n_inv, n_amb = _extract(jnp.asarray(arr), K, canonical, _use_pallas(K))
+    hi, lo, valid, n_inv, n_amb = _extract(jnp.asarray(arr), K, canonical)
     if int(n_inv) or (int(n_amb) and not skip_ambiguous):
         raise EncodeError(DNAAlphabet2(), "<ambiguous or invalid base>")
     if skip_ambiguous:

@@ -1,6 +1,6 @@
 """MinHash sketching of canonical k-mers.
 
-TPU-native version of the reference's headline minhash workflow
+Array-plane version of the reference's headline minhash workflow
 (/root/reference/docs/src/minhash.md): the sketch is the ``s`` smallest
 distinct FxHash values over the canonical K-mers of a sequence.  On
 device, hashes are sorted and a static prefix is returned; the tiny
@@ -34,8 +34,8 @@ def _smallest_prefix(hh, hl, prefix: int):
     """Smallest-``prefix`` (hh, hl) pairs by hh, with a sound boundary.
 
     Two-stage selection: per-row ``top_k`` over a (R, ~8192) reshape, then
-    a global ``top_k`` over the ~n/1024 survivors — measured 75 ms vs
-    215 ms for one global ``top_k(4096)`` at 2^26 on v5e.  Returns
+    a global ``top_k`` over the ~n/1024 survivors (its cost against one
+    global ``top_k`` is not yet measured on the H100).  Returns
     ``(hh_sel, hl_sel, boundary)`` where every element with
     ``hh < boundary`` is guaranteed selected: stage 1 keeps all elements
     below each row's kpr-th smallest (>= min of that across rows =
@@ -71,24 +71,6 @@ def _smallest_prefix(hh, hl, prefix: int):
 
 
 @partial(jax.jit, static_argnames=("K", "prefix"))
-def _sketch_chunk_pallas(v_u32, K: int, prefix: int):
-    """Fused-kernel variant: Mosaic u32-view -> canonical -> FxHash
-    kernel -> two-stage top_k.  Classify + pack + the error counter all
-    happen inside the kernel (no device-side bitcast/transpose — the
-    input is the host's '<u4' byte view).  Invalid windows hash to
-    all-ones; no valid K<=31 kmer can (the FxHash preimage of ~0 is
-    >= 2^62), so the host-side filter on the sentinel is exact."""
-    from ..ops.pallas.window_kernel import canonical_windows_u32_pallas
-
-    hh, hl, n_bad, n_amb = canonical_windows_u32_pallas(
-        v_u32, K, emit_hash=True
-    )
-    cand_hh, cand_hl, boundary = _smallest_prefix(hh, hl, prefix)
-    shh, shl = jax.lax.sort((cand_hh, cand_hl), num_keys=2)
-    return shh, shl, n_bad, n_amb, boundary
-
-
-@partial(jax.jit, static_argnames=("K", "prefix"))
 def _sketch_chunk(bytes_u8, K: int, prefix: int):
     """Bottom-``prefix`` hashes by partial selection.
 
@@ -111,7 +93,7 @@ def _sketch_chunk(bytes_u8, K: int, prefix: int):
     return shh, shl, jnp.sum(invalid), jnp.sum(ambig), boundary
 
 
-def _sketch_exact(arr, K: int, s: int, skip_ambiguous: bool, use_pallas: bool):
+def _sketch_exact(arr, K: int, s: int, skip_ambiguous: bool):
     """Exact s-smallest-distinct canonical-kmer FxHashes of one byte
     buffer, as a sorted np.uint64 array of length <= s.
 
@@ -121,21 +103,12 @@ def _sketch_exact(arr, K: int, s: int, skip_ambiguous: bool, use_pallas: bool):
     bytes (0xf0 class) raise only when ``skip_ambiguous`` is False."""
     n_windows = arr.size - K + 1
     def run(prefix):
-        host_pad = 0
-        if use_pallas:
-            from .canonical_count import _pad_to_u32_view
-
-            v, host_pad = _pad_to_u32_view(arr)
-            hh, hl, n_invalid, n_ambig, boundary = _sketch_chunk_pallas(
-                jnp.asarray(v), K, prefix
-            )
-        else:
-            hh, hl, n_invalid, n_ambig, boundary = _sketch_chunk(
-                jnp.asarray(arr), K, prefix
-            )
+        hh, hl, n_invalid, n_ambig, boundary = _sketch_chunk(
+            jnp.asarray(arr), K, prefix
+        )
         if int(n_invalid):
             raise EncodeError(DNAAlphabet2(), "<batch input>")
-        if int(n_ambig) - host_pad and not skip_ambiguous:
+        if int(n_ambig) and not skip_ambiguous:
             raise EncodeError(DNAAlphabet2(), "<ambiguous base>")
         h = (np.asarray(hh).astype(np.uint64) << np.uint64(32)) | np.asarray(
             hl
@@ -158,23 +131,15 @@ def _sketch_exact(arr, K: int, s: int, skip_ambiguous: bool, use_pallas: bool):
     return h[:s]
 
 
-def _default_use_pallas() -> bool:
-    # device-validated bit-exact vs the jnp path and ~21% faster
-    # (289 vs 239 Mbases/s @ 2^26 on v5e); Mosaic needs a TPU backend
-    return jax.default_backend() == "tpu"
-
-
 def minhash_sketch(
     data,
     K: int = 16,
     s: int = 1000,
     skip_ambiguous: bool = True,
-    use_pallas: bool | None = None,
 ):
     """The ``s`` smallest distinct canonical-kmer FxHashes of ``data``.
 
-    Returns a sorted np.uint64 array of length <= s.  ``use_pallas``
-    selects the fused Mosaic kernel (default: TPU backends only; K <= 31).
+    Returns a sorted np.uint64 array of length <= s.
 
     Invalid bytes (the LUT's 0xff error class) always raise
     ``EncodeError``; ambiguous IUPAC codes are skipped when
@@ -186,9 +151,7 @@ def minhash_sketch(
     arr = np.frombuffer(bytes(data), dtype=np.uint8)
     if arr.size < K:
         return np.zeros(0, np.uint64)
-    if use_pallas is None:
-        use_pallas = _default_use_pallas()
-    return _sketch_exact(arr, K, s, skip_ambiguous, use_pallas)
+    return _sketch_exact(arr, K, s, skip_ambiguous)
 
 
 class StreamingSketcher:
@@ -214,15 +177,11 @@ class StreamingSketcher:
         K: int = 16,
         s: int = 1000,
         chunk_size: int = 1 << 24,
-        use_pallas: bool | None = None,
         metrics=None,
     ):
         if chunk_size < K:
             raise ValueError("chunk_size must be >= K")
         self.K, self.s, self.chunk_size = K, s, chunk_size
-        self._use_pallas = (
-            _default_use_pallas() if use_pallas is None else use_pallas
-        )
         self._sketch = np.zeros(0, np.uint64)
         self._bases = 0
         self._windows = 0
@@ -271,7 +230,7 @@ class StreamingSketcher:
                 chunk = np.concatenate(
                     [chunk, np.full(target - chunk.shape[0], ord("N"), np.uint8)]
                 )
-            h = _sketch_exact(chunk, K, self.s, True, self._use_pallas)
+            h = _sketch_exact(chunk, K, self.s, True)
             self._sketch = np.unique(np.concatenate([self._sketch, h]))[
                 : self.s
             ]

@@ -22,10 +22,7 @@ import numpy as np
 from .canonical_count import (
     CountConfig,
     _as_byte_array,
-    _chunk_count,
-    _chunk_count_u32,
-    _on_tpu,
-    _pad_to_u32_view,
+    _chunk_count_checked,
     join_records_with_n,
 )
 from ..ops.count import _next_pow2, compact_counts, merge_compact_tables
@@ -69,9 +66,6 @@ class StreamingCounter:
             return (mh[:cap], ml[:cap], mc[:cap])
 
         self._stack = LevelStack(_merge, _slice)
-        self._use_pallas = (
-            _on_tpu() if config.use_pallas is None else config.use_pallas
-        )
         self._n_invalid = 0
         self._n_valid = 0  # Python int: unbounded window-conservation tally
         self._n_windows = 0
@@ -112,20 +106,12 @@ class StreamingCounter:
                 chunk = np.concatenate(
                     [chunk, np.full(target - chunk.shape[0], ord("N"), np.uint8)]
                 )
-            # checked variants: the per-chunk valid-window tally feeds the
-            # finalize() conservation guard, which catches both kernel
+            # checked variant: the per-chunk valid-window tally feeds the
+            # finalize() conservation guard, which catches both counting
             # bugs and int32 accumulator overflow on unbounded streams
-            if self._use_pallas:
-                v, _ = _pad_to_u32_view(chunk)
-                uh, ul, cnt, nu, n_inv, _n_amb, n_val, _n_cnt = (
-                    _chunk_count_u32(jnp.asarray(v), K, checked=True)
-                )
-            else:
-                from .canonical_count import _chunk_count_checked
-
-                uh, ul, cnt, nu, n_inv, _n_amb, n_val, _n_cnt = (
-                    _chunk_count_checked(jnp.asarray(chunk), K, False)
-                )
+            uh, ul, cnt, nu, n_inv, _n_amb, n_val, _n_cnt = (
+                _chunk_count_checked(jnp.asarray(chunk), K)
+            )
             # per-chunk scalar fetches: the streaming API is sync per
             # batch anyway (the reader is the bottleneck)
             self._n_invalid += int(n_inv)
@@ -164,7 +150,7 @@ class StreamingCounter:
                 f"window conservation violated: {self._n_valid} valid "
                 f"windows seen but {counted} counted — int32 count "
                 "accumulator overflow (a kmer with >= 2^31 occurrences) "
-                "or a kernel bug"
+                "or a counting bug"
             )
         if self.metrics is not None:
             self.metrics.end_batch(

@@ -2,8 +2,8 @@
 
 The minimal ``LongSequence`` equivalent this framework needs (SURVEY.md §2.6):
 a conversion source/target for kmers, a test oracle for kmer operations, and
-the host-side container handed to the batched TPU ops.  Unlike the packed
-TPU representation (``kmers_tpu.ops``), a ``Seq`` stores one encoding per
+the host-side container handed to the batched array ops.  Unlike the packed
+array representation (``kmers_tpu.ops``), a ``Seq`` stores one encoding per
 array element (uint8 for <=8-bit alphabets, uint32 for the generic test
 alphabet), trading density for simplicity.
 """
@@ -145,7 +145,7 @@ class Seq:
     def __repr__(self):
         return f"Seq({self.alphabet!r}, {str(self)!r})"
 
-    # -- biological ops (test oracles for the kmer/TPU paths) ----------
+    # -- biological ops (test oracles for the kmer/array paths) ----------
     def complement(self) -> "Seq":
         A = self.alphabet
         if not isinstance(A, NucleicAcidAlphabet):

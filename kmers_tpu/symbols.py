@@ -1,6 +1,6 @@
 """Biological symbol types: DNA, RNA, AminoAcid.
 
-TPU-native re-implementation of the symbol substrate the reference package
+Array-plane-ready re-implementation of the symbol substrate the reference package
 (BioJulia/Kmers.jl) gets from BioSymbols.jl (see SURVEY.md §2.6).  The bit
 encodings are contractual and must match BioSymbols exactly:
 

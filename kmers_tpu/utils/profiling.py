@@ -43,8 +43,7 @@ def device_op_times(log_dir: str) -> dict[str, float]:
     ``log_dir``.  Device-executed HLOs appear under their HLO names
     (e.g. ``sort.0``, fusion/custom-call names); host-side events carry
     Python frames.  This is the stage-budget view used to find the
-    pipeline bottleneck (wall timings through a remote transport distort
-    per-op attribution by ~25-30 ms of dispatch overhead)."""
+    pipeline bottleneck."""
     paths = glob.glob(
         os.path.join(log_dir, "**", "*.trace.json.gz"), recursive=True
     )

@@ -6,7 +6,7 @@ tuple index holds the capacity scalar): keep up to ``depth`` chunk
 outputs in flight, queue the scalar outputs' device-to-host copies at
 enqueue time, and drain the oldest output once the queue is full — so
 by drain time the scalars have long arrived and the reads cost no round
-trip (a 1-deep double-buffer still paid ~1 remote RTT per chunk).
+trip.
 """
 
 from __future__ import annotations

@@ -66,7 +66,7 @@ class TestArrayPlane:
         )
 
         seq = "".join("ACGTN"[i] for i in rng.integers(0, 5, 3000))
-        cfg = CountConfig(K=9, chunk_size=1024, use_pallas=False)
+        cfg = CountConfig(K=9, chunk_size=1024)
         k0, c0 = canonical_count_bytes(seq, cfg)
         with checked():
             k1, c1 = canonical_count_bytes(seq, cfg)

@@ -1,18 +1,30 @@
 """Environment capability guards (round-2 verdict weak #8).
 
-The suite's only intended skips are deterministic parameter-combo skips
-("window longer than input" in test_pallas.py).  The capabilities that
-*gate* real coverage must be present, so a broken toolchain fails the
-suite instead of silently skipping it hollow.
+The capabilities that *gate* real coverage must be present, so a broken
+toolchain fails the suite instead of silently skipping it hollow.
 """
 
 
-def test_pallas_available():
-    from kmers_tpu.ops.pallas import HAVE_PALLAS
+def test_compile_cache_dir_is_fixed(monkeypatch):
+    # the persistent compile cache keys on its path: it is the env var's
+    # directory when set, else one fixed directory in the checkout
+    import os
 
-    assert HAVE_PALLAS, (
-        "pallas import failed: every kernel test would silently skip"
-    )
+    import jax
+
+    from kmers_tpu.utils.compile_cache import _ROOT, use_compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere")
+        assert use_compile_cache() == "/elsewhere"
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        path = use_compile_cache()
+        assert path == os.path.join(_ROOT, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == path
+        assert os.path.isdir(os.path.join(_ROOT, "kmers_tpu"))
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
 
 
 def test_native_scanner_available():

@@ -282,7 +282,7 @@ class TestMinhash:
     def test_two_stage_selection_exact(self, rng):
         # exercise the two-stage top_k branch of _smallest_prefix directly
         # (end-to-end sketches on CPU-sized inputs stay in the one-stage
-        # branch, which would leave the TPU-sized path untested)
+        # branch, which would leave the full-size path untested)
         import jax.numpy as jnp
 
         from kmers_tpu.pipelines.minhash import _smallest_prefix
@@ -327,7 +327,7 @@ class TestUtils:
         seq = "ACGTN" * 300  # every window hits an N except none: K=3
         m = Metrics()
         kmers, counts = canonical_count_bytes(
-            seq, CountConfig(K=3, chunk_size=512, use_pallas=False), metrics=m
+            seq, CountConfig(K=3, chunk_size=512), metrics=m
         )
         assert len(m.batches) == 1
         b = m.batches[0]
@@ -523,7 +523,7 @@ def test_profile_step_reports_event_times():
     )
 
     def step():
-        out = _chunk_count(data, 15, False)
+        out = _chunk_count(data, 15)
         int(np.asarray(out[3]))
 
     top = profile_step(step, reps=1, top=5)

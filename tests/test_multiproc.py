@@ -2,7 +2,7 @@
 
 Launches two real worker processes, each with its own virtual CPU
 devices, forming one process-spanning mesh — the hash-prefix exchange's
-``all_to_all`` crosses a process boundary (the DCN path a single-process
+``all_to_all`` crosses a process boundary (the path a single-process
 virtual mesh cannot exercise).  Parity is asserted inside each worker
 against the single-chip pipeline (tools/multiproc_worker.py).
 """

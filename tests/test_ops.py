@@ -1,4 +1,4 @@
-"""Array (TPU) plane vs the scalar oracle: bit-exact parity.
+"""Array plane vs the scalar oracle: bit-exact parity.
 
 The scalar Kmer plane plays the role Kmers.jl plays for the reference's
 tests (SURVEY.md §4 "oracle testing"): every batched kernel must
@@ -151,16 +151,6 @@ class TestClassify:
             idx = rng.integers(0, n, 5000)
             got = np.asarray(lookup_bytes(tbl, idx))
             assert np.array_equal(got, tbl[idx].astype(np.uint32)), n
-
-    def test_stride_select_vs_slicing(self, rng):
-        from kmers_tpu.ops.stride import stride_select
-
-        for n in (5, 100, 4096, 200000):
-            x = rng.integers(0, 1 << 32, n).astype(np.uint32)
-            for s in (1, 2, 3, 7, 16):
-                for off in (0, 1, 2):
-                    got = np.asarray(stride_select(x, s, off))
-                    assert np.array_equal(got, x[off::s]), (n, s, off)
 
 
 class TestWindows:

@@ -88,12 +88,10 @@ class TestShardedCount:
         assert np.array_equal(k, k1) and np.array_equal(c, c1)
         assert c.sum() == len(s) - K + 1
 
-    def test_streamed_kernel_path_parity(self, sample):
-        # streamed + fused Mosaic kernels (interpreter mode on CPU)
+    def test_streamed_small_chunk_parity(self, sample):
+        # streamed with several 600-base chunks per device on 3 devices
         mesh = data_mesh(3)
-        cfg = ShardedCountConfig(
-            K=31, chunk_size=600, use_pallas=True, pallas_interpret=True
-        )
+        cfg = ShardedCountConfig(K=31, chunk_size=600)
         k, c = sharded_canonical_count(sample[:6000], cfg, mesh)
         k1, c1 = canonical_count(sample[:6000], K=31)
         assert np.array_equal(k, k1) and np.array_equal(c, c1)
@@ -280,9 +278,9 @@ class TestSixFrame:
         }
 
     @pytest.mark.parametrize("n_dev", [1, 4])
-    def test_split_pallas_path_parity(self, n_dev):
-        # the TPU split-dispatch form (FE | sort + Mosaic RLE) through
-        # the interpreter, vs the jnp single-program form
+    def test_chunked_oracle_parity(self, n_dev):
+        # 1200-base chunks stream through the level stack and match the
+        # python oracle
         from kmers_tpu.parallel.sixframe import (
             SixFrameCountConfig,
             sharded_sixframe_aa_count,
@@ -291,28 +289,16 @@ class TestSixFrame:
         rng = np.random.default_rng(31)
         s = "".join("ACGTN"[i] for i in rng.integers(0, 5, 5000))
         K = 5
-        jnp_out = sharded_sixframe_aa_count(
+        out = sharded_sixframe_aa_count(
             s, SixFrameCountConfig(K=K, chunk_size=1200), data_mesh(n_dev)
         )
-        pl_out = sharded_sixframe_aa_count(
-            s,
-            SixFrameCountConfig(
-                K=K, chunk_size=1200, use_pallas=True, pallas_interpret=True,
-                fused_fe=False,
-            ),
-            data_mesh(n_dev),
-        )
-        assert np.array_equal(jnp_out[0], pl_out[0])
-        assert np.array_equal(jnp_out[1], pl_out[1])
         oracle = self._oracle(s, K)
-        assert dict(zip(pl_out[0].tolist(), pl_out[1].tolist())) == {
+        assert dict(zip(out[0].tolist(), out[1].tolist())) == {
             int(k): v for k, v in oracle.items()
         }
 
     @pytest.mark.parametrize("n_dev", [1, 3, 8])
-    def test_fused_fe_parity(self, n_dev):
-        # fully fused Mosaic front-end (interpret mode): bit-exact vs the
-        # jnp pipeline and the python oracle
+    def test_default_config_oracle_parity(self, n_dev):
         from kmers_tpu.parallel.sixframe import (
             SixFrameCountConfig,
             sharded_sixframe_aa_count,
@@ -321,28 +307,18 @@ class TestSixFrame:
         rng = np.random.default_rng(41)
         s = "".join("ACGTN"[i] for i in rng.integers(0, 5, 5000))
         K = 5
-        jnp_out = sharded_sixframe_aa_count(
+        out = sharded_sixframe_aa_count(
             s, SixFrameCountConfig(K=K), data_mesh(n_dev)
         )
-        f_out = sharded_sixframe_aa_count(
-            s,
-            SixFrameCountConfig(
-                K=K, use_pallas=True, pallas_interpret=True, fused_fe=True
-            ),
-            data_mesh(n_dev),
-        )
-        assert np.array_equal(jnp_out[0], f_out[0])
-        assert np.array_equal(jnp_out[1], f_out[1])
         oracle = self._oracle(s, K)
-        assert dict(zip(f_out[0].tolist(), f_out[1].tolist())) == {
+        assert dict(zip(out[0].tolist(), out[1].tolist())) == {
             int(k): v for k, v in oracle.items()
         }
 
     @pytest.mark.parametrize("n_dev,K", [(1, 8), (1, 9), (3, 15)])
-    def test_fused_fe_multilimb_parity(self, n_dev, K):
-        # multi-limb fused Mosaic FE (interpret): bit-exact vs the jnp
-        # pipeline and the python oracle for K > 7 amino acids.  K=8 is
-        # the register-filling width (8K == 32M): the explicit validity
+    def test_multilimb_oracle_parity(self, n_dev, K):
+        # K > 7 amino acids on multi-limb registers.  K=8 is the
+        # register-filling width (8K == 32M): the explicit validity
         # stream must drive sort_count_mw's flag-operand branch, where a
         # sentinel value could collide with a real all-ones window
         from kmers_tpu.parallel.sixframe import (
@@ -352,42 +328,26 @@ class TestSixFrame:
 
         rng = np.random.default_rng(47)
         s = "".join("ACGTN"[i] for i in rng.integers(0, 5, 1500))
-        mesh = data_mesh(n_dev)
-        jnp_out = sharded_sixframe_aa_count(
-            s, SixFrameCountConfig(K=K), mesh
+        out = sharded_sixframe_aa_count(
+            s, SixFrameCountConfig(K=K), data_mesh(n_dev)
         )
-        f_out = sharded_sixframe_aa_count(
-            s,
-            SixFrameCountConfig(
-                K=K, use_pallas=True, pallas_interpret=True, fused_fe=True
-            ),
-            mesh,
-        )
-        assert [int(x) for x in jnp_out[0]] == [int(x) for x in f_out[0]]
-        assert np.array_equal(jnp_out[1], f_out[1])
         oracle = self._oracle(s, K)
         assert dict(
-            zip([int(k) for k in f_out[0]], f_out[1].tolist())
+            zip([int(k) for k in out[0]], out[1].tolist())
         ) == {int(k): v for k, v in oracle.items()}
 
-    def test_fused_fe_requires_pallas(self):
-        # fused_fe=True without the pallas path would silently feed u32
-        # rows to the jnp step (wrong results); it must raise instead
-        from kmers_tpu.parallel.sixframe import (
-            SixFrameCountConfig,
-            sharded_sixframe_aa_count,
-        )
+    def test_config_rejects_out_of_range(self):
+        from kmers_tpu.parallel.sixframe import SixFrameCountConfig
 
-        with pytest.raises(ValueError, match="fused_fe"):
-            sharded_sixframe_aa_count(
-                "ACGT" * 200,
-                SixFrameCountConfig(K=5, use_pallas=False, fused_fe=True),
-                data_mesh(1),
-            )
+        with pytest.raises(ValueError):
+            SixFrameCountConfig(K=33)
+        with pytest.raises(ValueError):
+            SixFrameCountConfig(K=7, chunk_size=41)
 
-    def test_fused_fe_multichunk_stream(self):
-        # device slabs longer than one fused row stream through the
-        # level-stack (3+ chunks) and still match the jnp pipeline
+    def test_multichunk_stream(self):
+        # device slabs of ~35k bases in 3000-base chunks stream through
+        # the level stack (12 chunks per device) and match the
+        # one-dispatch-per-device run
         from kmers_tpu.parallel.sixframe import (
             SixFrameCountConfig,
             sharded_sixframe_aa_count,
@@ -397,18 +357,14 @@ class TestSixFrame:
         s = "".join("ACGTN"[i] for i in rng.integers(0, 5, 70000))
         K = 3
         mesh = data_mesh(2)
-        jnp_out = sharded_sixframe_aa_count(
-            s, SixFrameCountConfig(K=K), mesh
+        one = sharded_sixframe_aa_count(
+            s, SixFrameCountConfig(K=K, chunk_size=1 << 16), mesh
         )
-        f_out = sharded_sixframe_aa_count(
-            s,
-            SixFrameCountConfig(
-                K=K, use_pallas=True, pallas_interpret=True, fused_fe=True
-            ),
-            mesh,
+        many = sharded_sixframe_aa_count(
+            s, SixFrameCountConfig(K=K, chunk_size=3000), mesh
         )
-        assert np.array_equal(jnp_out[0], f_out[0])
-        assert np.array_equal(jnp_out[1], f_out[1])
+        assert np.array_equal(one[0], many[0])
+        assert np.array_equal(one[1], many[1])
 
     def test_metrics_windows_skipped_counts_ambiguity(self):
         # windows_skipped = ambiguity-invalidated windows (possible -
@@ -575,12 +531,12 @@ class TestShardedMultiword:
             sharded_canonical_count_mw("ACGT!" * 100, K=33, mesh=mesh)
 
 
-class TestShardedPallasPath:
+class TestShardedChunked:
     @pytest.mark.parametrize("n_dev", [1, 3])
-    def test_kernel_path_parity(self, sample, n_dev):
-        # the fused Mosaic kernel inside shard_map (interpreter mode on CPU)
+    def test_streamed_matches_single_dispatch(self, sample, n_dev):
+        # 1024-base chunks per device vs one dispatch per device
         mesh = data_mesh(n_dev)
-        cfg = ShardedCountConfig(K=31, use_pallas=True, pallas_interpret=True)
+        cfg = ShardedCountConfig(K=31, chunk_size=1024)
         k, c = sharded_canonical_count(sample[:6000], cfg, mesh)
         k1, c1 = sharded_canonical_count(
             sample[:6000], ShardedCountConfig(K=31), mesh

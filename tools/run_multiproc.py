@@ -1,11 +1,14 @@
-"""Launch the multi-process (jax.distributed) parity run and record the
-artifact.
+"""Launch the multi-process (jax.distributed) parity run and report it.
 
 Spawns N worker processes (tools/multiproc_worker.py), each with its own
 set of virtual CPU devices, forming one process-spanning mesh.  Verifies
 that ``sharded_canonical_count`` over that mesh is bit-exact vs the
-single-chip pipeline on both the single-dispatch and streamed paths, and
-writes MULTIPROC_r05.json.
+single-chip pipeline on both the single-dispatch and streamed paths.
+
+CPU-only by design: the workers pin ``JAX_PLATFORMS=cpu`` and use gloo
+collectives, so no worker ever opens a GPU (several JAX processes on one
+card would each reserve most of its memory).  The four-card GPU path is
+one process over all cards: ``python chip_smoke.py --multi``.
 
 Usage: python tools/run_multiproc.py [--nproc 2] [--bases 200000]
 """
@@ -24,6 +27,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _worker_env(root: str) -> dict:
+    """The child environment: CPU only, and the repo root importable (a
+    script's ``sys.path[0]`` is its own directory, ``tools/``)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p
+    )
+    return env
+
+
 def _make_oracle(root: str, bases: int, path: str):
     """Precompute single-process six-frame/multiword expectations in a
     SEPARATE process (computations on meshes that don't span every
@@ -33,7 +46,6 @@ def _make_oracle(root: str, bases: int, path: str):
 import json, sys
 sys.path.insert(0, {root!r})
 import jax
-jax.config.update("jax_platforms", "cpu")
 from tools.multiproc_worker import make_inputs
 from kmers_tpu.parallel import SixFrameCountConfig, sharded_sixframe_aa_count, data_mesh
 from kmers_tpu.pipelines import minimizer_select
@@ -50,7 +62,8 @@ json.dump({{
 print("oracle written")
 """
     subprocess.run(
-        [sys.executable, "-c", script], check=True, cwd=root, timeout=600
+        [sys.executable, "-c", script], check=True, cwd=root, timeout=600,
+        env=_worker_env(root),
     )
 
 
@@ -82,6 +95,7 @@ def run(nproc: int = 2, devices_per_proc: int = 4, bases: int = 200_000,
                 stderr=subprocess.STDOUT,
                 text=True,
                 cwd=root,
+                env=_worker_env(root),
             )
         )
     results, tails = [], []
